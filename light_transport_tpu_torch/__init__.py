@@ -1,11 +1,15 @@
 """light_transport_tpu_torch — the PyTorch/CUDA port of light_transport_tpu.
 
-The photon-transport slice: layered media, the MCML superstep engine in
-plain torch (``simulate``), and the fused photon block as a hand-written
-CUDA kernel for Hopper (``ops.photon_kernel.simulate_kernel``), with its
-plain PyTorch version for tensors on the CPU.
+Two slices: photon transport (layered media, the MCML superstep engine in
+plain torch, ``simulate``, and the fused photon block as a hand-written
+CUDA kernel for Hopper, ``ops.photon_kernel.simulate_kernel``) and the
+camera render (the NEE path tracer, ``render``, over the cluster-culled
+intersector whose two CUDA kernels are in ``ops.intersect_kernel``).
+Every kernel has its plain PyTorch version, which runs for tensors on the
+CPU.  Constructors and entry points build on the card unless given
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"
 
-from light_transport_tpu_torch.api import simulate  # noqa: F401
+from light_transport_tpu_torch.api import render, simulate  # noqa: F401

@@ -1,10 +1,10 @@
-"""Public API of the photon slice."""
+"""Public API: the photon engine and the camera render."""
 
 from __future__ import annotations
 
 from typing import Optional
 
-from light_transport_tpu_torch.core.config import PhotonRunConfig
+from light_transport_tpu_torch.core.config import PhotonRunConfig, RenderConfig
 
 
 def simulate(medium, run_cfg: Optional[PhotonRunConfig] = None,
@@ -16,3 +16,19 @@ def simulate(medium, run_cfg: Optional[PhotonRunConfig] = None,
 
     run_cfg = run_cfg or PhotonRunConfig()
     return simulate_photons(medium, run_cfg, seed, device=device)
+
+
+def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
+           integrator: str = "path", ray_chunk: Optional[int] = None):
+    """Render a camera image ``(H, W, 3)`` on the scene's device with the
+    NEE path tracer.  The other integrators of the JAX package (adaptive,
+    Whitted, BDPT) are not ported yet (ROADMAP)."""
+    if integrator != "path":
+        raise NotImplementedError(
+            f"integrator={integrator!r} is not ported yet (ROADMAP); the "
+            "port renders integrator='path'")
+    from light_transport_tpu_torch.integrators.path_tracer import render_image
+
+    cfg = cfg or RenderConfig()
+    return render_image(scene, cfg, cfg.seed if seed is None else seed,
+                        ray_chunk=ray_chunk)

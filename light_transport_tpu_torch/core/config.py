@@ -1,13 +1,53 @@
-"""Typed configuration objects for the photon slice.
+"""Typed configuration objects.
 
 Field names and defaults equal ``light_transport_tpu.core.config`` so a
-configuration means the same run in both packages.  ``RenderConfig`` and
-``MeshTopology`` belong to slices not yet ported.
+configuration means the same run in both packages.  ``MeshTopology``
+belongs to a slice not yet ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Camera-render settings; the screen bounds derive from the aspect
+    ratio.  The port renders ``sampler="uniform"``, ``aperture=0``,
+    ``fresnel_mode="stochastic"``, ``shadow_mode="opaque"`` and
+    ``compact_tail=False``; the other values raise at render time."""
+
+    width: int = 150
+    height: int = 150
+    spp: int = 12
+    max_depth: int = 4
+    f_distance: float = 5.0
+    # Russian roulette starts after this bounce
+    rr_start: int = 3
+    rr_floor: float = 0.05
+    # 'first_hit' | 'always' | 'nee' | 'mis' (see path_tracer._bounce)
+    emission_mode: str = "first_hit"
+    # 'one': one shadow ray to a random area-weighted light point;
+    # 'all': one shadow ray per light triangle at its centroid
+    nee_mode: str = "one"
+    shadow_mode: str = "opaque"
+    fresnel_mode: str = "stochastic"
+    sampler: str = "uniform"
+    compact_tail: bool = False
+    aperture: float = 0.0
+    focus_distance: float = 0.0
+    seed: int = 0
+
+    @property
+    def aspect_ratio(self) -> float:
+        return self.width / self.height
+
+    @property
+    def screen_bounds(self) -> Tuple[float, float, float, float]:
+        """(left, right, top, bottom)."""
+        ar = self.aspect_ratio
+        return (-1.0, 1.0, 1.0 / ar, -1.0 / ar)
 
 
 @dataclasses.dataclass(frozen=True)

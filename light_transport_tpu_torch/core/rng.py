@@ -1,0 +1,30 @@
+"""Per-bounce uniform slots of the camera path tracer.
+
+A path is a pure function of its ``(lanes, max_depth, NUM_U)`` uniform
+tensor, as in ``light_transport_tpu.core.rng``.  The port draws the tensor
+from a ``torch.Generator`` on the device; JAX's threefry stream is not
+reproduced, so tests hand both packages the same numbers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+U_BSDF0 = 0  # concentric-disk / first BSDF uniform; also reflect-vs-refract
+U_BSDF1 = 1  # second BSDF uniform
+U_LIGHT0 = 2  # light-surface barycentric u
+U_LIGHT1 = 3  # light-surface barycentric v
+U_PICK = 4  # light triangle pick
+U_RR = 5  # Russian roulette
+U_MED = 6  # interior-medium free-flight distance
+NUM_U = 7
+
+
+def path_uniforms(gen: torch.Generator, lanes: int, max_depth: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The uniform tensor of a path population, ``(lanes, depth, NUM_U)``,
+    on ``gen``'s device, in the open interval (0, 1): a zero draw becomes
+    the smallest normal float, as JAX draws with ``minval=tiny``."""
+    u = torch.rand((lanes, max_depth, NUM_U), generator=gen, dtype=dtype,
+                   device=gen.device)
+    return u.clamp_(min=torch.finfo(dtype).tiny)

@@ -1,8 +1,10 @@
-"""Sampling math for photon transport — batched, branchless.
+"""Sampling math — batched, branchless.
 
-The photon half of ``light_transport_tpu.ops.sampling``: launch specular
-reflectance, exact Fresnel reflectance, the Henyey-Greenstein inverse CDF
-and the scattering rotation.  Every function maps over leading batch dims.
+The counterpart of ``light_transport_tpu.ops.sampling``: the photon half
+(launch specular reflectance, exact Fresnel reflectance, the
+Henyey-Greenstein inverse CDF and the scattering rotation) and the render
+half (concentric disk, cosine hemisphere, the modified-Phong lobe and
+Schlick).  Every function maps over leading batch dims.
 """
 
 from __future__ import annotations
@@ -10,6 +12,91 @@ from __future__ import annotations
 import math
 
 import torch
+
+from light_transport_tpu_torch.core import math as lm
+
+
+def concentric_sample_disk(u0: torch.Tensor, u1: torch.Tensor):
+    """Shirley-Chiu concentric disk warp; returns (dx, dy)."""
+    ox = 2.0 * u0 - 1.0
+    oy = 2.0 * u1 - 1.0
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    num = torch.where(use_x, oy, ox)
+    safe = torch.where(r == 0.0, 1.0, r)
+    ratio = torch.where(r == 0.0, 0.0, num / safe)
+    theta = torch.where(use_x, lm.PI_OVER_4 * ratio,
+                        lm.PI_OVER_2 - lm.PI_OVER_4 * ratio)
+    r = torch.where((ox == 0.0) & (oy == 0.0), 0.0, r)
+    return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def cosine_weighted_hemisphere(normal: torch.Tensor, u0, u1):
+    """Cosine-weighted direction about ``normal`` (Malley's method), in the
+    normal's own frame.  Returns ``(direction, pdf)``, pdf = cos/pi."""
+    dx, dy = concentric_sample_disk(u0, u1)
+    z2 = torch.clamp(1.0 - dx * dx - dy * dy, min=0.0)
+    pos = z2 > 0.0
+    z = torch.where(pos, torch.sqrt(torch.where(pos, z2, 1.0)), 0.0)
+    local = torch.stack([dx, dy, z], dim=-1)
+    return lm.to_world(local, normal), z * lm.INV_PI
+
+
+def sample_phong_lobe(axis: torch.Tensor, shininess, u0, u1):
+    """Direction from the normalized Phong lobe about ``axis``,
+    p(w) = (n+1)/(2 pi) cos^n; may fall below the horizon (callers zero
+    those)."""
+    cos_a = torch.pow(torch.clamp(u0, 1e-12, 1.0), 1.0 / (shininess + 1.0))
+    s2 = torch.clamp(1.0 - cos_a * cos_a, min=0.0)
+    pos = s2 > 0.0
+    sin_a = torch.where(pos, torch.sqrt(torch.where(pos, s2, 1.0)), 0.0)
+    phi = 2.0 * math.pi * u1
+    local = torch.stack(
+        [sin_a * torch.cos(phi), sin_a * torch.sin(phi), cos_a], dim=-1)
+    return lm.to_world(local, axis)
+
+
+def _pow_pos(c, shininess):
+    pos = c > 0.0
+    return torch.where(pos, torch.pow(torch.where(pos, c, 1.0), shininess),
+                       0.0)
+
+
+def phong_pdf(axis: torch.Tensor, w: torch.Tensor, shininess):
+    """Solid-angle pdf of :func:`sample_phong_lobe`."""
+    cos_a = torch.clamp(lm.dot(axis, w), min=0.0)
+    return (shininess + 1.0) * lm.INV_2PI * _pow_pos(cos_a, shininess)
+
+
+def glossy_mix(kd_rgb: torch.Tensor, ks_rgb: torch.Tensor):
+    """Specular-lobe probability q = lum(ks) / (lum(kd) + lum(ks))."""
+    kd_l = lm.luminance(kd_rgb)
+    ks_l = lm.luminance(ks_rgb)
+    return ks_l / torch.clamp(kd_l + ks_l, min=1e-12)
+
+
+def glossy_pdf(kd_rgb, ks_rgb, shininess, n_s, refl_dir, w):
+    """Solid-angle pdf of the modified-Phong sampler (cosine lobe and Phong
+    lobe mixed by :func:`glossy_mix`)."""
+    q = glossy_mix(kd_rgb, ks_rgb)
+    p_diff = torch.clamp(lm.dot(n_s, w), min=0.0) * lm.INV_PI
+    return (1.0 - q) * p_diff + q * phong_pdf(refl_dir, w, shininess)
+
+
+def glossy_f(kd_rgb, ks_rgb, shininess, refl_dir, w):
+    """Modified-Phong BRDF: kd/pi + ks (n+2)/(2 pi) cos^n about the mirror
+    direction."""
+    cos_a = torch.clamp(lm.dot(refl_dir, w), min=0.0)
+    spec = (shininess + 2.0) * lm.INV_2PI * _pow_pos(cos_a, shininess)
+    return kd_rgb * lm.INV_PI + ks_rgb * spec[..., None]
+
+
+def schlick_reflectance(r0, cos_i):
+    """Schlick's approximation R = R0 + (1-R0)(1-|cos_i|)^5, the fifth
+    power taken as XLA takes an integer power: m * ((m*m) * (m*m))."""
+    m = torch.clamp(1.0 - torch.abs(cos_i), 0.0, 1.0)
+    m2 = m * m
+    return r0 + (1.0 - r0) * (m * (m2 * m2))
 
 
 def schlick_r0(n1, n2):

@@ -33,7 +33,7 @@ class LayeredMedium:
     @staticmethod
     def build(layers: Sequence[MediumConfig], n_above: float = 1.0,
               n_below: float = 1.0, dtype=np.float32,
-              device="cpu") -> "LayeredMedium":
+              device="cuda") -> "LayeredMedium":
         mu_a = np.asarray([l.mu_a for l in layers], dtype=dtype)
         mu_s = np.asarray([l.mu_s for l in layers], dtype=dtype)
         g = np.asarray([l.g for l in layers], dtype=dtype)

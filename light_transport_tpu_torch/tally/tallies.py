@@ -46,7 +46,7 @@ class PhotonTallies:
     absorbed: torch.Tensor  # () f64
 
     @staticmethod
-    def zeros(cfg: PhotonRunConfig, device="cpu") -> "PhotonTallies":
+    def zeros(cfg: PhotonRunConfig, device="cuda") -> "PhotonTallies":
         nx = max(cfg.detector_nx, 1)
         vshape = (max(cfg.vol_nx, 1), max(cfg.vol_ny, 1), max(cfg.vol_nz, 1))
         f32, f64, i64 = torch.float32, torch.float64, torch.int64

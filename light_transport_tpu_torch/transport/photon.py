@@ -44,7 +44,7 @@ class PhotonState:
     alive: torch.Tensor  # (N,) bool
 
     @staticmethod
-    def dead(n: int, device="cpu") -> "PhotonState":
+    def dead(n: int, device="cuda") -> "PhotonState":
         f32 = torch.float32
         d = torch.zeros((n, 3), dtype=f32, device=device)
         d[:, 2] = 1.0

@@ -1,4 +1,5 @@
-"""Carry media, tallies and engine state across from the JAX package.
+"""Carry media, tallies, engine state, scenes, uniforms and hits across
+from the JAX package.
 
 Every function takes or returns the JAX side as numpy arrays, so this
 module needs neither JAX nor the JAX package: tests convert with
@@ -9,6 +10,10 @@ module needs neither JAX nor the JAX package: tests convert with
 * Arrays are copied: a tensor never aliases a numpy (or JAX) buffer.
 * The JAX kernel state is 9 arrays of shape ``(n_tiles * 64, 128)``; the
   port's is flat ``(lanes,)`` in the same row-major lane order.
+* A scene is a dict of dicts of the JAX ``Scene``'s fields: ``mesh``
+  (``MESH_FIELDS``, in the BVH-reordered order when the scene has one),
+  ``materials``, ``lights``, ``camera`` and optionally ``bvh`` (the flat
+  node arrays of ``BVH_FIELDS``).
 """
 
 from __future__ import annotations
@@ -16,8 +21,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from light_transport_tpu_torch.accel.bvh import BVH, _compute_skip
+from light_transport_tpu_torch.ops.intersect import Hit
 from light_transport_tpu_torch.ops.photon_kernel import KernelState
+from light_transport_tpu_torch.scene.geometry import MESH_FIELDS, TriangleMesh
+from light_transport_tpu_torch.scene.lights import LIGHT_FIELDS, LightTable
+from light_transport_tpu_torch.scene.material import (
+    MATERIAL_FIELDS,
+    MaterialTable,
+)
 from light_transport_tpu_torch.scene.medium import LayeredMedium
+from light_transport_tpu_torch.scene.scene import Scene
 from light_transport_tpu_torch.tally.tallies import PhotonTallies
 from light_transport_tpu_torch.transport.photon import PhotonState
 
@@ -28,6 +42,7 @@ TALLY_FIELDS = ("refl_r", "trans_r", "absorb_rz", "specular", "launched",
                 "steps", "detector_xy", "absorb_xyz", "absorbed")
 _COUNTERS = ("launched", "steps")
 _F64 = ("refl_r", "trans_r", "specular", "absorbed")
+BVH_FIELDS = ("bounds_min", "bounds_max", "right", "first", "count", "axis")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -45,7 +60,7 @@ def int_to_counter(v: int) -> np.ndarray:
     return np.asarray([hi, lo], np.float32)
 
 
-def medium_from_numpy(d: dict, device="cpu") -> LayeredMedium:
+def medium_from_numpy(d: dict, device="cuda") -> LayeredMedium:
     """LayeredMedium from the nine fields of the JAX ``LayeredMedium``."""
     return LayeredMedium(**{
         k: _tensor(d[k], np.float32, device)
@@ -56,7 +71,7 @@ def medium_to_numpy(m: LayeredMedium) -> dict:
     return {k: getattr(m, k).cpu().numpy() for k in MEDIUM_FIELDS}
 
 
-def tallies_from_numpy(d: dict, device="cpu") -> PhotonTallies:
+def tallies_from_numpy(d: dict, device="cuda") -> PhotonTallies:
     out = {}
     for k in TALLY_FIELDS:
         if k in _COUNTERS:
@@ -75,7 +90,7 @@ def tallies_to_numpy(t: PhotonTallies) -> dict:
             for k in TALLY_FIELDS}
 
 
-def kernel_state_from_numpy(arrays, device="cpu") -> KernelState:
+def kernel_state_from_numpy(arrays, device="cuda") -> KernelState:
     """KernelState from the JAX engine's 9 ``(rows, 128)`` state arrays
     (px, py, pz, dx, dy, dz, w, tau, layer)."""
     arrays = list(arrays)
@@ -91,7 +106,7 @@ def kernel_state_to_numpy(state: KernelState, lanes_per_row: int = 128):
 
 
 def photon_state_from_numpy(pos, dir, w, layer, tau, alive,
-                            device="cpu") -> PhotonState:
+                            device="cuda") -> PhotonState:
     """PhotonState from the superstep engine's arrays."""
     f32 = np.float32
     return PhotonState(
@@ -103,3 +118,56 @@ def photon_state_from_numpy(pos, dir, w, layer, tau, alive,
 def photon_state_to_numpy(s: PhotonState) -> dict:
     return {k: getattr(s, k).cpu().numpy()
             for k in ("pos", "dir", "w", "layer", "tau", "alive")}
+
+
+def _tensors(d: dict, fields, device) -> dict:
+    return {k: torch.from_numpy(np.array(d[k], copy=True)).to(device)
+            for k in fields}
+
+
+def _arrays(obj, fields) -> dict:
+    return {k: getattr(obj, k).cpu().numpy() for k in fields}
+
+
+def scene_from_numpy(d: dict, device="cuda") -> Scene:
+    """Scene from the JAX ``Scene``'s tables (see the module docstring);
+    dtypes are kept as given."""
+    bvh = None
+    if d.get("bvh") is not None:
+        b = _tensors(d["bvh"], BVH_FIELDS, device)
+        skip = _compute_skip(np.asarray(d["bvh"]["right"]),
+                             np.asarray(d["bvh"]["count"]))
+        bvh = BVH(**b, skip=torch.from_numpy(skip).to(device))
+    return Scene(
+        mesh=TriangleMesh(**_tensors(d["mesh"], MESH_FIELDS, device)),
+        materials=MaterialTable(**_tensors(d["materials"], MATERIAL_FIELDS,
+                                           device)),
+        lights=LightTable(**_tensors(d["lights"], LIGHT_FIELDS, device)),
+        camera=_tensor(d["camera"], np.asarray(d["camera"]).dtype, device),
+        bvh=bvh)
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    return {"mesh": _arrays(scene.mesh, MESH_FIELDS),
+            "materials": _arrays(scene.materials, MATERIAL_FIELDS),
+            "lights": _arrays(scene.lights, LIGHT_FIELDS),
+            "camera": scene.camera.cpu().numpy(),
+            "bvh": (None if scene.bvh is None
+                    else _arrays(scene.bvh, BVH_FIELDS))}
+
+
+def uniforms_from_numpy(u_aa, uniforms, device="cuda"):
+    """The camera jitter ``(N, 2)`` and path uniforms ``(N, depth, NUM_U)``
+    as float32 tensors."""
+    return (_tensor(u_aa, np.float32, device),
+            _tensor(uniforms, np.float32, device))
+
+
+def hit_from_numpy(t, tri, valid, device="cuda") -> Hit:
+    return Hit(t=_tensor(t, np.float32, device),
+               tri=_tensor(tri, np.int32, device),
+               valid=_tensor(valid, bool, device))
+
+
+def hit_to_numpy(hit: Hit) -> dict:
+    return {k: getattr(hit, k).cpu().numpy() for k in ("t", "tri", "valid")}

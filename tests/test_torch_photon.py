@@ -61,15 +61,16 @@ def run_chain():
                       vol_dx=0.05, vol_dy=0.05, vol_dz=0.05)
     cfg = PhotonRunConfig(**dataclasses.asdict(jcfg))
     m = interop.medium_from_numpy(
-        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS})
+        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS},
+        device="cpu")
     step = jax.jit(jphoton.superstep, static_argnums=4,
                    compiler_options=CHEAP_COMPILE)
     rng = np.random.default_rng(7)
     js, jt = jphoton.PhotonState.dead(N_LANES), JTallies.zeros(jcfg)
     jq = jnp.asarray(QUOTA, jnp.int32)
     s = interop.photon_state_from_numpy(
-        **{k: np.asarray(v) for k, v in js._asdict().items()})
-    t = PhotonTallies.zeros(cfg)
+        **{k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
+    t = PhotonTallies.zeros(cfg, device="cpu")
     q = torch.tensor(QUOTA, dtype=torch.int64)
     for _ in range(N_STEPS):
         u = rng.random((N_LANES, 5), dtype=np.float32)
@@ -116,7 +117,7 @@ N_PHOTONS = 10_000
 
 
 def run(layers, seed=0, **kw):
-    m = LayeredMedium.build(layers, **kw)
+    m = LayeredMedium.build(layers, **kw, device="cpu")
     cfg = PhotonRunConfig(n_photons=N_PHOTONS, nr=50, nz=50, dr=0.002,
                           dz=0.002)
     return simulate(m, cfg, seed=seed)
@@ -153,7 +154,8 @@ def test_energy_conservation_and_exact_launches():
 
 
 def test_drain_compaction_keeps_launches_and_energy():
-    m = LayeredMedium.build([MediumConfig(mu_a=1.0, mu_s=9.0, g=0.0)])
+    m = LayeredMedium.build([MediumConfig(mu_a=1.0, mu_s=9.0, g=0.0)],
+                            device="cpu")
     cfg = PhotonRunConfig(n_photons=4000, nr=8, nz=8, dr=0.05, dz=0.05)
     t = photon.simulate_photons(m, cfg, seed=3, lanes=1024,
                                 compact_drain=True, min_lanes=64)
@@ -162,7 +164,8 @@ def test_drain_compaction_keeps_launches_and_energy():
 
 
 def test_run_fixed_steps_counts():
-    m = LayeredMedium.build([MediumConfig(mu_a=1.0, mu_s=9.0, g=0.5)])
+    m = LayeredMedium.build([MediumConfig(mu_a=1.0, mu_s=9.0, g=0.5)],
+                            device="cpu")
     _, t = photon.run_fixed_steps(m, PhotonRunConfig(nr=16, nz=16), seed=0,
                                   lanes=512, n_steps=32)
     assert t.n_steps == 512 * 32  # every lane live every step

@@ -78,7 +78,8 @@ def jax_medium():
 
 def port_medium(jm):
     return interop.medium_from_numpy(
-        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS})
+        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS},
+        device="cpu")
 
 
 def run_pair(name):
@@ -107,12 +108,13 @@ def run_pair(name):
     out = []
     for b in range(2):
         seed = 1234 + b * 65537
-        state = interop.kernel_state_from_numpy([np.asarray(a) for a in jstate])
+        state = interop.kernel_state_from_numpy(
+            [np.asarray(a) for a in jstate], device="cpu")
         quota = torch.tensor([0 if bench else int(np.asarray(jquota)[0, 0])],
                              dtype=torch.int32)
         jstate, jt, jcounters, u = jax_block(jstate, jnp.int32(seed), jquota)
         jquota = jcounters[:, 3:4]
-        tallies = PhotonTallies.zeros(cfg)
+        tallies = PhotonTallies.zeros(cfg, device="cpu")
         u = torch.from_numpy(np.asarray(u).reshape(-1, TILE).copy())
         counters = eng.run_block(state, tallies, seed, quota, b, u)
         eng.accumulate(tallies, counters)

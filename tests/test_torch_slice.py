@@ -77,7 +77,8 @@ def _slab_runs():
     jt = simulate_pallas(jm, jcfg, seed=SEED, lanes=TILE, k_steps=16,
                          chunk_blocks=1)
     m = interop.medium_from_numpy(
-        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS})
+        {k: np.asarray(getattr(jm, k)) for k in interop.MEDIUM_FIELDS},
+        device="cpu")
     cfg = PhotonRunConfig(**dataclasses.asdict(jcfg))
     timings = {}
     t = simulate_kernel(m, cfg, seed=SEED, lanes=TILE, k_steps=16,
@@ -111,7 +112,7 @@ def test_full_scale_shaped_run_closes_energy():
     per-window respawn, detector) at a CPU size: launch count exact and
     energy closed."""
     m = LayeredMedium.build([MediumConfig(mu_a=2.0, mu_s=48.0, g=0.9,
-                                          n=1.37)])
+                                          n=1.37)], device="cpu")
     cfg = PhotonRunConfig(n_photons=600, nr=16, nz=16, dr=0.05, dz=0.05,
                           detector_nx=16, detector_extent=1.28,
                           vol_nx=8, vol_ny=8, vol_nz=8, vol_dx=0.2,

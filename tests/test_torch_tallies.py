@@ -28,7 +28,8 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("name", ["MediumConfig", "PhotonRunConfig"])
+@pytest.mark.parametrize("name", ["MediumConfig", "PhotonRunConfig",
+                                  "RenderConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     ours = dataclasses.fields(getattr(config, name))
     theirs = dataclasses.fields(getattr(jconfig, name))
@@ -54,13 +55,14 @@ def test_medium_build_matches_jax(which):
     layers, kw = LAYER_SETS[which]
     jm = JMedium.build(layers, **kw)
     m = LayeredMedium.build(
-        [config.MediumConfig(**dataclasses.asdict(l)) for l in layers], **kw)
+        [config.MediumConfig(**dataclasses.asdict(l)) for l in layers], **kw,
+        device="cpu")
     assert m.num_layers == jm.num_layers
     for k in interop.MEDIUM_FIELDS:
         a, b = getattr(m, k).numpy(), np.asarray(getattr(jm, k))
         assert a.dtype == b.dtype and a.shape == b.shape, k
         np.testing.assert_array_equal(a, b, err_msg=k)
-    back = interop.medium_from_numpy(interop.medium_to_numpy(m))
+    back = interop.medium_from_numpy(interop.medium_to_numpy(m), device="cpu")
     for k in interop.MEDIUM_FIELDS:
         assert torch.equal(getattr(back, k), getattr(m, k)), k
 
@@ -68,7 +70,7 @@ def test_medium_build_matches_jax(which):
 @pytest.mark.parametrize("name", ["demo", "multilayer", "full_scale"])
 def test_presets_match_jax(name):
     jm, jcfg = jpresets.PRESETS[name]()
-    m, cfg = presets.PRESETS[name]()
+    m, cfg = presets.PRESETS[name](device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     for k in interop.MEDIUM_FIELDS:
         np.testing.assert_array_equal(getattr(m, k).numpy(),
@@ -93,7 +95,7 @@ def test_tallies_round_trip_through_jax_layout():
                                  vol_ny=3, vol_nz=2)
     jcfg = jconfig.PhotonRunConfig(**dataclasses.asdict(cfg))
     jz = JTallies.zeros(jcfg)
-    t = PhotonTallies.zeros(cfg)
+    t = PhotonTallies.zeros(cfg, device="cpu")
     for k in interop.TALLY_FIELDS:
         assert tuple(getattr(t, k).shape) == (
             () if k in ("launched", "steps") else np.shape(getattr(jz, k))), k
@@ -102,7 +104,7 @@ def test_tallies_round_trip_through_jax_layout():
          for k in interop.TALLY_FIELDS}
     d["launched"] = interop.int_to_counter(123_456_789_012)
     d["steps"] = interop.int_to_counter(2 ** 40 - 1)
-    t = interop.tallies_from_numpy(d)
+    t = interop.tallies_from_numpy(d, device="cpu")
     assert t.n_launched == 123_456_789_012
     assert t.n_steps == 2 ** 40 - 1
     back = interop.tallies_to_numpy(t)
@@ -142,6 +144,23 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.models.presets\n"
         "import light_transport_tpu_torch.tally.stats\n"
         "import light_transport_tpu_torch.utils.interop\n"
+        "import light_transport_tpu_torch.accel.bvh\n"
+        "import light_transport_tpu_torch.accel.native\n"
+        "import light_transport_tpu_torch.core.math\n"
+        "import light_transport_tpu_torch.core.rng\n"
+        "import light_transport_tpu_torch.integrators.path_tracer\n"
+        "import light_transport_tpu_torch.ops.dispatch\n"
+        "import light_transport_tpu_torch.ops.intersect\n"
+        "import light_transport_tpu_torch.ops.intersect_kernel\n"
+        "import light_transport_tpu_torch.ops.raysort\n"
+        "import light_transport_tpu_torch.ops.sampling\n"
+        "import light_transport_tpu_torch.scene.analytic\n"
+        "import light_transport_tpu_torch.scene.cornell\n"
+        "import light_transport_tpu_torch.scene.geometry\n"
+        "import light_transport_tpu_torch.scene.glass\n"
+        "import light_transport_tpu_torch.scene.lights\n"
+        "import light_transport_tpu_torch.scene.material\n"
+        "import light_transport_tpu_torch.scene.scene\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
