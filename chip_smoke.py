@@ -29,6 +29,18 @@ script exits non-zero without the final result line):
  10. render main path: the soft-shadow scene (123,204 triangles, 241
      clusters) at 400x400, 10 spp, depth 3 through K4, and a subset of
      its lanes re-traced through the plain intersector
+ 11. the big-mesh scene of scripts/bench_treelet_render.py (a
+     4,202,100-triangle sphere in the Cornell box, 4,202,118 triangles)
+     built from the port's modules, each build step timed; the treelet
+     kernels K5 and K5r against the plain roped walk on its camera,
+     bounce-1 and shadow rays (every 9th lane inactive), nearest and any
+     hit, through the single-launch, wavefront and queued drivers; the
+     dispatch of that scene without treelet tables (one K5 launch per
+     query) and without a BVH (refused on the card)
+ 12. big-mesh render main path: that scene at 256x256, 2 spp, depth 3
+     through K5 (camera rays) and K5r (bounce and shadow rays), its
+     heaviest launches re-run through the plain walk, a subset of its
+     lanes re-traced through the plain walk, and a profile
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -36,6 +48,7 @@ line is {"ok": true, "device": {...}}.
 
 import contextlib
 import dataclasses
+import functools
 from concurrent.futures import ThreadPoolExecutor
 import json
 import math
@@ -59,15 +72,23 @@ from light_transport_tpu_torch.models.presets import (
     glass_scene,
     multilayer_mismatch,
 )
+from light_transport_tpu_torch.accel import bvh as bvh_mod
 from light_transport_tpu_torch.ops import _build
+from light_transport_tpu_torch.ops import dispatch
 from light_transport_tpu_torch.ops import intersect_kernel as ik
 from light_transport_tpu_torch.ops import photon_kernel as pk
-from light_transport_tpu_torch.scene.cornell import sphere_triangles
+from light_transport_tpu_torch.ops import treelet_kernel as tk
+from light_transport_tpu_torch.scene.cornell import (
+    cornell_box_scene,
+    sphere_triangles,
+)
 from light_transport_tpu_torch.scene.geometry import (
     TriangleMesh,
     concat_meshes,
     quad_triangles,
+    uv_sphere_triangles,
 )
+from light_transport_tpu_torch.scene.lights import sample_light_points
 from light_transport_tpu_torch.scene.material import (
     Material,
     MaterialTable,
@@ -102,6 +123,19 @@ PHOTON_OPS_PER_STEP = 260
 PAIR_OPS = 45
 SOFT_SHADOW_CFG = RenderConfig(width=400, height=400, spp=10, max_depth=3,
                                f_distance=3.5)
+# operations of the treelet walk, counted from csrc/treelet_kernel.cu: a
+# node visit's slab test (6 subtracts, 6 multiplies, 12 min/max, 4
+# compares) and a triangle test's Moller-Trumbore (27 multiplies, 18 adds
+# and subtracts, a divide, 8 compares and an abs)
+NODE_OPS = 28
+TRI_OPS = 55
+# bytes the treelet walk must move: the 48 it reads of a node record, the
+# 36 of a triangle it tests, and per ray its feature rows and outputs (K5:
+# 11 floats in, best_t, best_tri and visits out; K5r: 10 floats and the
+# cursor, best_t and best_tri in, those three and visits out)
+NODE_BYTES = 48
+TRI_BYTES = 36
+RAY_BYTES = {"treelet_walk": 44 + 12, "treelet_resume": 52 + 16}
 
 
 def log(phase, msg, t0=None):
@@ -726,7 +760,7 @@ def phase10(scene):
     return launches["intersect_gather"], rec, (wall1, wall2)
 
 
-def profile_render(scene, cfg, wall):
+def profile_render(scene, cfg, wall, phase=10):
     """Where a render's device time goes: one more render under
     torch.profiler, device time by kernel, and the device's busy share of
     the unprofiled render's wall time."""
@@ -744,13 +778,338 @@ def profile_render(scene, cfg, wall):
                         if e.device_type == DeviceType.CUDA
                         and e.self_device_time_total > 0), reverse=True)
     busy = sum(t for t, _, _ in by_kernel) / 1e3  # ms
-    log(10, f"profiled render: device busy {busy:.1f} ms = "
+    log(phase, f"profiled render: device busy {busy:.1f} ms = "
             f"{busy / (wall * 1e3):.3f} of the unprofiled render's wall "
-            f"{wall * 1e3:.1f} ms; {len(by_kernel)} kernels, the top ten:")
+            f"{wall * 1e3:.1f} ms; {sum(c for _, c, _ in by_kernel)} "
+            f"launches of {len(by_kernel)} kernels, the top ten:")
     for t, count, key in by_kernel[:10]:
         print(f"    {t / 1e3:9.3f} ms {t / 1e3 / busy:6.3f} x{count:<5d} "
               f"{key[:90]}", flush=True)
     check(busy > 0, "the profiler saw no device time")
+
+
+# --------------------------------------------------------------------------
+# phases 11-12: the big-mesh render slice
+# --------------------------------------------------------------------------
+
+BIG_SIZE, BIG_SPP, BIG_DEPTH = 256, 2, 3
+TREELET_KERNELS = {  # wrapper -> plain version
+    "treelet_walk": tk.treelet_walk_reference,
+    "treelet_resume": tk.treelet_resume_reference,
+}
+
+
+def big_mesh_scene():
+    """scripts/bench_treelet_render.py's scene at its defaults, from the
+    port's modules: the Cornell box without its cone (18 triangles) and a
+    4,202,100-triangle UV sphere (mat 0) at (0, -4.5, 0), radius 2.9, the
+    camera at (0, 0, 8).  ``with_bvh()`` attaches the treelet tables on the
+    card.  Returns (scene, cfg, seconds per build step)."""
+    timings = {}
+    t0 = time.perf_counter()
+    base, cfg = cornell_box_scene(width=BIG_SIZE, height=BIG_SIZE,
+                                  spp=BIG_SPP, max_depth=BIG_DEPTH,
+                                  include_cone=False, device=DEV)
+    dim = 7.5
+    tris = uv_sphere_triangles(center=(0.0, -dim + 3.0, 0.0), radius=2.9,
+                               n_theta=1450, n_phi=1450)
+    sphere = TriangleMesh.build(tris, np.zeros(len(tris), np.int32),
+                                device=DEV)
+    del tris
+    mesh = concat_meshes([base.mesh, sphere])
+    scene = Scene.build(mesh, base.materials, camera=[0.0, 0.0, dim + 0.5])
+    torch.cuda.synchronize()
+    timings["mesh_s"] = time.perf_counter() - t0
+    scene = scene.with_bvh(timings=timings)
+    torch.cuda.synchronize()
+    timings["total_s"] = time.perf_counter() - t0
+    return scene, cfg, timings
+
+
+@contextlib.contextmanager
+def plain_treelet():
+    """Both treelet wrappers replaced by their plain versions (the drivers
+    reach them through the module's globals); fails if a kernel launched
+    meanwhile."""
+    saved = {name: getattr(tk, name) for name in TREELET_KERNELS}
+    before = dict(tk.LAUNCHES)
+    try:
+        for name, ref in TREELET_KERNELS.items():
+            setattr(tk, name,
+                    lambda *a, _ref=ref, **k: _ref(*a))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(tk, name, fn)
+    check(tk.LAUNCHES == before,
+          f"the plain walk launched kernels: {before} -> {tk.LAUNCHES}")
+
+
+def same_hits(label, got, want):
+    """Bitwise equal hits (a Hit or an any-hit mask) and per-ray visits;
+    returns the number of hits."""
+    (hk, sk), (hp, sp) = got, want
+    if isinstance(hk, torch.Tensor):
+        check(torch.equal(hk, hp), f"{label}: any-hit masks differ in "
+                                   f"{int((hk != hp).sum())} rays")
+        n_hit = int(hp.sum())
+    else:
+        for k in ("valid", "tri", "t"):
+            a, b = getattr(hk, k), getattr(hp, k)
+            check(torch.equal(a, b),
+                  f"{label}: {k} differs in {int((a != b).sum())} rays")
+        n_hit = int(hp.valid.sum())
+    check(torch.equal(sk["visits"], sp["visits"]),
+          f"{label}: visits differ in "
+          f"{int((sk['visits'] != sp['visits']).sum())} rays")
+    return n_hit
+
+
+def phase11(scene, cfg):
+    """K5 and K5r against the plain walk on the big scene's own rays."""
+    tables = scene.treelet
+    t0 = time.perf_counter()
+    cam_cfg = dataclasses.replace(cfg, spp=1)  # 65,536 camera rays
+    o, d, u = pt._camera_lanes(scene, cam_cfg, generator(11))
+    n = o.shape[0]
+    active = torch.ones(n, dtype=torch.bool, device=DEV)
+    active[::9] = False
+    inf = torch.full((n,), float("inf"), device=DEV)
+    g = generator(12)
+    batches = [("camera rays", o, d, inf,
+                5.0 + 10.0 * torch.rand(n, generator=g, device=DEV))]
+    state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0,
+                          coherent=True)
+    act1 = active & state.alive
+    batches.append(("bounce-1 rays", state.origin, state.direction, inf,
+                    0.5 + 14.5 * torch.rand(n, generator=g, device=DEV)))
+    # shadow rays from the bounce-1 origins to area-uniform light points
+    lp, _, _, _ = sample_light_points(
+        scene.lights, *torch.rand((3, n), generator=g, device=DEV))
+    to_light = lp - state.origin
+    dist = torch.linalg.vector_norm(to_light, dim=-1)
+    sd = to_light / dist[:, None]
+    md = dist * (1.0 - 1e-3)
+    batches.append(("shadow rays", state.origin, sd, md, md))
+    drivers = {
+        "single": tk.intersect_bvh_treelet,
+        "wavefront": functools.partial(
+            tk.intersect_bvh_treelet_wavefront,
+            loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
+            max_passes=dispatch.WAVEFRONT_MAX_PASSES),
+        "queued": tk.intersect_bvh_treelet_queued,
+    }
+    plain_ms = {}
+    for label, bo, bd, t_near, t_any in batches:
+        act = act1 if label != "camera rays" else active
+        for any_hit, t_hi in ((False, t_near), (True, t_any)):
+            t_hi = torch.where(act, t_hi, float("-inf"))
+            mode = "any hit" if any_hit else "nearest"
+            with plain_treelet():
+                walks = bvh_mod.PLAIN_WALKS
+                t1 = time.perf_counter()
+                want = tk.intersect_bvh_treelet(bo, bd, tables, t_max=t_hi,
+                                                any_hit=any_hit,
+                                                with_stats=True)
+                torch.cuda.synchronize()
+                plain_ms[(label, mode)] = (time.perf_counter() - t1) * 1e3
+                check(bvh_mod.PLAIN_WALKS == walks + 1, "no plain walk ran")
+            parts = []
+            for name, fn in drivers.items():
+                before = dict(tk.LAUNCHES)
+                t1 = time.perf_counter()
+                got = fn(bo, bd, tables, t_max=t_hi, any_hit=any_hit,
+                         with_stats=True)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                launched = {k: tk.LAUNCHES[k] - before[k] for k in before}
+                check(sum(launched.values()) > 0, f"{name}: no kernel")
+                n_hit = same_hits(f"{label}, {mode}, {name}", got, want)
+                parts.append(f"{name} {ms:.1f} ms ({got[1]['passes']} "
+                             f"passes)")
+            vis = want[1]["visits"]
+            log(11, f"{label}, {mode}: {n} rays ({int(act.sum())} active), "
+                    f"{n_hit} hit; bitwise equal to the plain walk "
+                    f"({plain_ms[(label, mode)]:.0f} ms) in valid, tri, t "
+                    f"and visits (mean {float(vis.float().mean()):.1f}, max "
+                    f"{int(vis.max())}) through " + ", ".join(parts))
+    # a BVH without tables (with_bvh(treelet=False)) walks through one K5
+    # launch per query; a big mesh without a BVH raises on the card
+    bare = dataclasses.replace(scene, treelet=None)
+    before, walks = dict(tk.LAUNCHES), bvh_mod.PLAIN_WALKS
+    hit = dispatch.scene_intersect(bare, o, d, active=active)
+    occ = dispatch.scene_occluded(bare, o, d, 10.0, active=active)
+    check(bvh_mod.PLAIN_WALKS == walks, "the plain walk ran on the card")
+    check(tk.LAUNCHES["treelet_walk"] == before["treelet_walk"] + 2
+          and tk.LAUNCHES["treelet_resume"] == before["treelet_resume"],
+          f"no tables: launches {before} -> {tk.LAUNCHES}")
+    t_act = torch.where(active, float("inf"), float("-inf"))
+    with plain_treelet():
+        want = tk.intersect_bvh_treelet(o, d, tables, t_max=t_act)
+        want_occ = tk.intersect_bvh_treelet(
+            o, d, tables, t_max=torch.where(active, 10.0, float("-inf")),
+            any_hit=True)
+    for k in ("valid", "tri", "t"):
+        check(torch.equal(getattr(hit, k), getattr(want, k)),
+              f"no tables: {k} differs from the plain walk")
+    check(torch.equal(occ, want_occ), "no tables: any-hit masks differ")
+    try:
+        dispatch.scene_intersect(dataclasses.replace(bare, bvh=None), o[:8],
+                                 d[:8])
+        check(False, "a big mesh without a BVH did not raise on the card")
+    except ValueError:
+        pass
+    log(11, "without tables: one K5 launch per query, bitwise equal to the "
+            "plain walk; without a BVH: refused")
+    log(11, "K5 and K5r done", t0)
+
+
+class TreeletRecorder:
+    """Wraps a treelet wrapper while installed: CUDA events around each
+    launch, the launch's own node, leaf and triangle counts, and its
+    operands, for holding the kernel against the plain walk on the
+    heaviest launch.  Fails if a call it sees launches no kernel."""
+
+    def __init__(self, name):
+        self.name = name
+        self.events, self.counts, self.launched = [], [], []
+
+    def __call__(self, *args):
+        counts = torch.zeros((3,), dtype=torch.int64, device=DEV)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        before = tk.LAUNCHES[self.name]
+        a.record()
+        out = self.wrapped(*args, counts=counts)
+        b.record()
+        check(tk.LAUNCHES[self.name] == before + (args[0].shape[1] > 0),
+              f"{self.name}: the call launched no kernel")
+        self.events.append((a, b))
+        self.counts.append(counts)
+        self.launched.append(args)
+        return out
+
+    def __enter__(self):
+        self.wrapped = getattr(tk, self.name)
+        setattr(tk, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(tk, self.name, self.wrapped)
+
+    def summary(self):
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        counts = [c.tolist() for c in self.counts]
+        return len(ms), sum(ms) / max(len(ms), 1), counts
+
+    def kernel_and_plain(self):
+        """The launch with the most node visits, through the kernel and
+        through the plain walk on the same operands, bitwise.  Returns the
+        kernel's ms (mean of 5 after a warm launch), the plain walk's ms
+        (one call), the bound, the launch's counts and the largest |t|
+        difference where both hit (0 when bitwise)."""
+        _, _, counts = self.summary()
+        k = max(range(len(counts)), key=lambda i: counts[i][0])
+        args = self.launched[k]
+        c = torch.zeros((3,), dtype=torch.int64, device=DEV)
+        got = self.wrapped(*args, counts=c)
+        want = []
+        ms_p = time_once(lambda: want.append(
+            TREELET_KERNELS[self.name](*args)))
+        want = want[0]
+        torch.cuda.synchronize()
+        check(c.tolist() == counts[k],
+              f"{self.name}: re-run counts {c.tolist()} vs {counts[k]}")
+        for name, a, b in zip(("cursor", "best_t", "best_tri", "visits")[
+                -len(got):], got, want):
+            check(torch.equal(a, b), f"{self.name}, heaviest launch: {name}"
+                                     f" differs in {int((a != b).sum())} "
+                                     "rays")
+        check(int(want[-1].sum()) == counts[k][0],
+              f"{self.name}: node visits {counts[k][0]} vs the plain walk's "
+                  f"{int(want[-1].sum())}")
+        bt_k, bi_k = got[-3], got[-2]
+        both = (bi_k >= 0) & (want[-2] >= 0)
+        err = float((bt_k[both] - want[-3][both]).abs().max()) \
+            if int(both.sum()) else 0.0
+        ms = cuda_ms(lambda: self.wrapped(*args), 5)
+        nodes, leaves, tris = counts[k]
+        rays = args[0].shape[1]
+        bound = bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
+                         nodes * NODE_BYTES + tris * TRI_BYTES
+                         + rays * RAY_BYTES[self.name])
+        mode = "any hit" if args[-1] else "nearest"
+        log(12, f"{self.name}, heaviest launch of the render ({mode}, "
+                f"{rays} rays, {nodes} node visits, {leaves} "
+                f"leaf visits, {tris} triangle tests): bitwise equal to the "
+                f"plain walk; kernel {ms:.3f} ms, plain {ms_p:.1f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]})")
+        return ms, ms_p, bound, counts[k], err
+
+
+def phase12(scene, cfg):
+    """The big-mesh render through K5 and K5r."""
+    n_lanes = cfg.width * cfg.height * cfg.spp
+    for name in tk.LAUNCHES:
+        tk.LAUNCHES[name] = 0
+    for name in ik.LAUNCHES:
+        ik.LAUNCHES[name] = 0
+    bvh_mod.PLAIN_WALKS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, samples = pt.render_image(scene, cfg, seed=0, return_samples=True)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    walks = bvh_mod.PLAIN_WALKS
+    check(launches["treelet_walk"] > 0, "the render launched no K5")
+    check(launches["treelet_resume"] > 0, "the render launched no K5r")
+    check(walks == 0, f"the plain walk ran {walks} times in the render")
+    check(sum(ik.LAUNCHES.values()) == 0,
+          f"the render launched the cluster kernels: {ik.LAUNCHES}")
+    t0 = time.perf_counter()
+    img2 = lt.render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with TreeletRecorder("treelet_walk") as k5, \
+            TreeletRecorder("treelet_resume") as k5r:
+        lt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    check(bvh_mod.PLAIN_WALKS == 0, "the plain walk ran in the render")
+    per = {}
+    for rec in (k5, k5r):
+        n, ms, counts = rec.summary()
+        per[rec.name] = (n, ms)
+        log(12, f"{rec.name}: {n} launches, {ms:.3f} ms per launch by CUDA "
+                f"events, {sum(c[0] for c in counts)} node visits in all "
+                f"(per launch {[c[0] for c in counts]})")
+    log(12, f"big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
+            f"{cfg.max_depth} ({scene.mesh.num_triangles} triangles, "
+            f"{n_lanes} lanes): first render {wall1:.3f} s, second "
+            f"{wall2:.3f} s, third {wall3:.3f} s (events around every "
+            f"launch); launches {launches}")
+    # re-trace every 97th lane through the plain walk
+    t0 = time.perf_counter()
+    o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
+    lanes = torch.arange(0, n_lanes, 97, device=DEV)
+    with plain_treelet():
+        rad_p, _ = pt.trace_paths(scene, cfg, o[lanes], d[lanes], u[lanes])
+    check(bvh_mod.PLAIN_WALKS > 0, "the re-trace ran no plain walk")
+    rad_k = samples.permute(2, 0, 1, 3).reshape(-1, 3)[lanes]
+    close = torch.isclose(rad_k, rad_p, rtol=1e-3, atol=1e-6).all(dim=1)
+    frac = float(close.float().mean())
+    mean = float(img.mean())
+    log(12, f"plain re-trace of {lanes.shape[0]} lanes: {frac:.5f} within "
+            f"rtol 1e-3; image mean {mean:.5f}, two renders equal "
+            f"{bool(torch.equal(img, img2))}", t0)
+    check(bool(torch.isfinite(img).all()), "big-mesh image not finite")
+    check(mean > 0.0, "big-mesh image is black")
+    check(frac >= 0.99, f"plain re-trace: {frac} of lanes agree")
+    profile_render(scene, cfg, wall2, phase=12)
+    return launches, (k5, k5r), (wall1, wall2)
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
@@ -771,7 +1130,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ["photon_kernel", "intersect_kernel"]
+    names = ["photon_kernel", "intersect_kernel", "treelet_kernel"]
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         libs = list(pool.map(_build.build, names))
     log(2, f"built {', '.join(p.name for p in libs)}", t0)
@@ -808,6 +1167,27 @@ def main():
         entries.append(kernel_entry(
             rec.name, "light_transport_tpu_torch/csrc/intersect_kernel.cu",
             replaces, launched, err, ms, plain_ms, bound))
+    del glass, soft, k3, k4
+    scene, cfg, timings = big_mesh_scene()
+    tab = scene.treelet
+    check(tab is not None, "with_bvh attached no treelet tables")
+    log(11, f"big-mesh scene: {scene.mesh.num_triangles} triangles, "
+            f"{tab.num_nodes} BVH nodes, {tab.n_treelets} treelets of "
+            f"{tab.T}, node and leaf records {tab.nbytes / 1e9:.3f} GB; "
+            f"seconds: mesh {timings['mesh_s']:.1f}, tree build "
+            f"{timings['build_s']:.1f}, skip ropes {timings['skip_s']:.2f}, "
+            f"records {timings['records_s']:.1f}, all "
+            f"{timings['total_s']:.1f}")
+    check(tab.node is scene.bvh.node_rec and tab.leaf is scene.bvh.leaf_rec,
+          "the treelet tables copied the BVH's records")
+    phase11(scene, cfg)
+    k5_launches, recs, _ = phase12(scene, cfg)
+    for rec in recs:
+        ms, plain_ms, bound, _, err = rec.kernel_and_plain()
+        entries.append(kernel_entry(
+            rec.name, "light_transport_tpu_torch/csrc/treelet_kernel.cu",
+            "light_transport_tpu/ops/pallas/treelet_kernel.py:204",
+            k5_launches[rec.name], err, ms, plain_ms, bound))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import torch
 from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.core import rng
 from light_transport_tpu_torch.core.config import RenderConfig
-from light_transport_tpu_torch.ops import sampling
+from light_transport_tpu_torch.ops import dispatch, sampling
 from light_transport_tpu_torch.ops.dispatch import (
     scene_intersect,
     scene_occluded,
@@ -154,14 +154,17 @@ def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
 
 
 def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
-            bounce: int, ray_chunk: Optional[int] = None):
+            bounce: int, ray_chunk: Optional[int] = None,
+            coherent: bool = False):
     """One superstep: ``u`` is this bounce's (N, NUM_U) uniforms.  Returns
-    the new state and the bounce's record entries."""
+    the new state and the bounce's record entries.  ``coherent``: the
+    rays are the camera grid (see ``ops.dispatch.scene_intersect``)."""
     mats = scene.materials
     eps = lm.EPSILON
 
     hit = scene_intersect(scene, state.origin, state.direction,
-                          ray_chunk=ray_chunk, active=state.alive)
+                          ray_chunk=ray_chunk, active=state.alive,
+                          coherent=coherent)
     hit_ok = hit.valid & state.alive
     hit_p = state.origin + state.direction * hit.t[:, None]
     hit_p = _where3(hit_ok, hit_p, torch.zeros_like(hit_p))
@@ -373,12 +376,15 @@ def trace_paths(scene, cfg: RenderConfig, origins: torch.Tensor,
                 ) -> Tuple[torch.Tensor, TraceRecord]:
     """Trace a lane population to completion; a pure function of
     ``uniforms`` (N, max_depth, NUM_U).  Returns ``(radiance (N, 3),
-    TraceRecord)``."""
+    TraceRecord)``.  Past the dispatch's ``MXU_MAX_TRIS`` the camera rays
+    of bounce 0 go to the dispatch as a coherent batch."""
     _check_config(cfg)
     state = PathState.initial(origins, directions)
+    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
     recs = []
     for b in range(cfg.max_depth):
-        state, rec = _bounce(scene, cfg, state, uniforms[:, b], b, ray_chunk)
+        state, rec = _bounce(scene, cfg, state, uniforms[:, b], b, ray_chunk,
+                             coherent=big and b == 0)
         recs.append(rec)
     return state.radiance, TraceRecord(
         *(torch.stack(parts, dim=1) for parts in zip(*recs)))

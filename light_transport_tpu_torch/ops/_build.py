@@ -92,3 +92,19 @@ def load_intersect_kernel() -> ctypes.CDLL:
         lib.intersect_kernel_error_string.restype = ctypes.c_char_p
         _loaded["intersect_kernel"] = lib
     return lib
+
+
+def load_treelet_kernel() -> ctypes.CDLL:
+    """The treelet-walk library (K5 and K5r), built on first use and bound
+    once."""
+    lib = _loaded.get("treelet_kernel")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("treelet_kernel")))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.treelet_walk_launch.argtypes = ([vp, i, vp, vp] + [i] * 7
+                                            + [vp] * 9)
+        lib.treelet_walk_launch.restype = ctypes.c_int
+        lib.treelet_kernel_error_string.argtypes = [ctypes.c_int]
+        lib.treelet_kernel_error_string.restype = ctypes.c_char_p
+        _loaded["treelet_kernel"] = lib
+    return lib

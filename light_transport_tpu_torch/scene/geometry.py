@@ -108,6 +108,30 @@ def quad_triangles(a, b, c, d) -> np.ndarray:
     return np.stack([np.stack([a, b, c]), np.stack([a, c, d])])
 
 
+def uv_sphere_triangles(center=(0.0, 0.0, 0.0), radius=1.0,
+                        n_theta=16, n_phi=32) -> np.ndarray:
+    """Vectorised UV-sphere triangulation, ``(T, 3, 3)`` float64: the band
+    and quad layout of ``scene.cornell.sphere_triangles`` (pole quads keep
+    only their non-degenerate half) built with numpy broadcasting, for the
+    million-triangle tessellations where the per-quad loop takes minutes."""
+    center = np.asarray(center, np.float64)
+    th = np.linspace(0.0, np.pi, n_theta + 1)
+    ph = np.linspace(0.0, 2 * np.pi, n_phi, endpoint=False)
+    pts = np.stack(
+        [np.sin(th)[:, None] * np.cos(ph)[None, :],
+         np.cos(th)[:, None] * np.ones_like(ph)[None, :],
+         np.sin(th)[:, None] * np.sin(ph)[None, :]], axis=-1)
+    pts = center + radius * pts
+    roll = np.roll(np.arange(n_phi), -1)
+    a = pts[:-1, :]
+    b = pts[:-1, roll]
+    c = pts[1:, roll]
+    d = pts[1:, :]
+    upper = np.stack([a, b, c], axis=2)[1:].reshape(-1, 3, 3)
+    lower = np.stack([a, c, d], axis=2)[:-1].reshape(-1, 3, 3)
+    return np.concatenate([upper, lower])
+
+
 def concat_meshes(meshes: Sequence[TriangleMesh]) -> TriangleMesh:
     return TriangleMesh(*(torch.cat([getattr(m, f) for m in meshes])
                           for f in MESH_FIELDS))

@@ -13,7 +13,10 @@ module needs neither JAX nor the JAX package: tests convert with
 * A scene is a dict of dicts of the JAX ``Scene``'s fields: ``mesh``
   (``MESH_FIELDS``, in the BVH-reordered order when the scene has one),
   ``materials``, ``lights``, ``camera`` and optionally ``bvh`` (the flat
-  node arrays of ``BVH_FIELDS``).
+  node arrays and fused records of ``BVH_FIELDS``; ``max_leaf`` is read
+  back from the leaf record's width) and ``treelet`` (``{"T": ...}``:
+  the port's treelet tables are the BVH's records cut into treelets of
+  ``T`` nodes).
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ TALLY_FIELDS = ("refl_r", "trans_r", "absorb_rz", "specular", "launched",
                 "steps", "detector_xy", "absorb_xyz", "absorbed")
 _COUNTERS = ("launched", "steps")
 _F64 = ("refl_r", "trans_r", "specular", "absorbed")
-BVH_FIELDS = ("bounds_min", "bounds_max", "right", "first", "count", "axis")
+BVH_FIELDS = ("bounds_min", "bounds_max", "right", "first", "count", "axis",
+              "node_rec", "leaf_rec")
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -137,14 +141,20 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         b = _tensors(d["bvh"], BVH_FIELDS, device)
         skip = _compute_skip(np.asarray(d["bvh"]["right"]),
                              np.asarray(d["bvh"]["count"]))
-        bvh = BVH(**b, skip=torch.from_numpy(skip).to(device))
-    return Scene(
+        # the leaf record holds 8 * ceil(9 * max_leaf / 8) floats, which is
+        # 8 * (max_leaf + 1) for max_leaf <= 8
+        bvh = BVH(**b, skip=torch.from_numpy(skip).to(device),
+                  max_leaf=b["leaf_rec"].shape[1] // 8 - 1)
+    scene = Scene(
         mesh=TriangleMesh(**_tensors(d["mesh"], MESH_FIELDS, device)),
         materials=MaterialTable(**_tensors(d["materials"], MATERIAL_FIELDS,
                                            device)),
         lights=LightTable(**_tensors(d["lights"], LIGHT_FIELDS, device)),
         camera=_tensor(d["camera"], np.asarray(d["camera"]).dtype, device),
         bvh=bvh)
+    if d.get("treelet") is not None:
+        scene = scene.with_treelet(T=int(d["treelet"]["T"]))
+    return scene
 
 
 def scene_to_numpy(scene: Scene) -> dict:
@@ -153,7 +163,9 @@ def scene_to_numpy(scene: Scene) -> dict:
             "lights": _arrays(scene.lights, LIGHT_FIELDS),
             "camera": scene.camera.cpu().numpy(),
             "bvh": (None if scene.bvh is None
-                    else _arrays(scene.bvh, BVH_FIELDS))}
+                    else _arrays(scene.bvh, BVH_FIELDS)),
+            "treelet": (None if scene.treelet is None
+                        else {"T": scene.treelet.T})}
 
 
 def uniforms_from_numpy(u_aa, uniforms, device="cuda"):

@@ -153,6 +153,7 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.ops.intersect\n"
         "import light_transport_tpu_torch.ops.intersect_kernel\n"
         "import light_transport_tpu_torch.ops.raysort\n"
+        "import light_transport_tpu_torch.ops.treelet_kernel\n"
         "import light_transport_tpu_torch.ops.sampling\n"
         "import light_transport_tpu_torch.scene.analytic\n"
         "import light_transport_tpu_torch.scene.cornell\n"
