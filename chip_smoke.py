@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's photon and render paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's photon and render paths and its feature
+probes on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -41,6 +42,12 @@ script exits non-zero without the final result line):
      through K5 (camera rays) and K5r (bounce and shadow rays), its
      heaviest launches re-run through the plain walk, a subset of its
      lanes re-traced through the plain walk, and a profile
+ 13. the feature probes P1-P10 (csrc/probe_kernels.cu): the entry point
+     of ops/feature_probes.py runs each in a subprocess of its own (its
+     launches counted from 0 there), then each kernel here against its
+     plain version on the reference probe's inputs, timed by CUDA events
+     beside an empty kernel launched the same way, the plain version and,
+     where one exists, a single PyTorch call of the same function
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -75,6 +82,7 @@ from light_transport_tpu_torch.models.presets import (
 from light_transport_tpu_torch.accel import bvh as bvh_mod
 from light_transport_tpu_torch.ops import _build
 from light_transport_tpu_torch.ops import dispatch
+from light_transport_tpu_torch.ops import feature_probes as fp
 from light_transport_tpu_torch.ops import intersect_kernel as ik
 from light_transport_tpu_torch.ops import photon_kernel as pk
 from light_transport_tpu_torch.ops import treelet_kernel as tk
@@ -113,6 +121,7 @@ GRIDS = ("absorb_rz", "detector_xy", "absorb_xyz", "refl_r", "trans_r")
 # NVIDIA's H100 SXM data sheet: FP32 on the CUDA cores, HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12  # dense, on the tensor cores
 # operations per live photon step, counted from csrc/photon_kernel.cu's
 # scatter step: ~130 FP32 (log1pf, cosf, two sqrtf, two divides, the hop,
 # the HG sample and the frame rotation) and ~130 32-bit integer (two
@@ -423,10 +432,11 @@ def phase7():
 # phases 8-10: the render slice
 # --------------------------------------------------------------------------
 
-def bound_ms(ops, nbytes):
-    """(least time in ms, what bounds it) for ``ops`` FP32 operations and
-    ``nbytes`` moved at the card's published peaks."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(ops, nbytes, peak=PEAK_FP32):
+    """(least time in ms, what bounds it) for ``ops`` operations at
+    ``peak`` per second (FP32 unless given) and ``nbytes`` moved, at the
+    card's published peaks."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -566,13 +576,23 @@ class Recorder:
             held[any_hit] = (args, ms_p, err)
         args, ms_p, err = held[False]
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
+        pairs = int(args[KERNELS[self.name][1]].sum())
+        return ms, ms_p, self.bound(args), pairs, err
+
+    def bound(self, args):
+        """The bound of one launch on ``args``: its admitted pairs'
+        operations or its operands' bytes."""
         feats, w_c = args[0], args[2]
         pairs = int(args[KERNELS[self.name][1]].sum())
         lists = sum(x.numel() * x.element_size() for x in args[3:-1])
         nbytes = (feats.numel() * 4 + args[1].numel() * 4
                   + w_c.numel() * 4 + lists + feats.shape[0] * 8)
-        return ms, ms_p, bound_ms(
-            pairs * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS, nbytes), pairs, err
+        return bound_ms(pairs * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS, nbytes)
+
+    def mean_bound(self):
+        """The bound averaged over every launch the recorder saw."""
+        return sum(self.bound(a)[0] for _, a in self.launched) / max(
+            len(self.launched), 1)
 
 
 def compare_hits(label, scene, o, d, active, max_dist):
@@ -1036,9 +1056,7 @@ class TreeletRecorder:
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
         nodes, leaves, tris = counts[k]
         rays = args[0].shape[1]
-        bound = bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
-                         nodes * NODE_BYTES + tris * TRI_BYTES
-                         + rays * RAY_BYTES[self.name])
+        bound = self.bound(counts[k], rays)
         mode = "any hit" if args[-1] else "nearest"
         log(12, f"{self.name}, heaviest launch of the render ({mode}, "
                 f"{rays} rays, {nodes} node visits, {leaves} "
@@ -1046,6 +1064,20 @@ class TreeletRecorder:
                 f"plain walk; kernel {ms:.3f} ms, plain {ms_p:.1f} ms, bound "
                 f"{bound[0]:.4f} ms ({bound[1]})")
         return ms, ms_p, bound, counts[k], err
+
+    def bound(self, counts, rays):
+        """The bound of one launch from its node visits and triangle tests
+        and its rays."""
+        nodes, _, tris = counts
+        return bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
+                        nodes * NODE_BYTES + tris * TRI_BYTES
+                        + rays * RAY_BYTES[self.name])
+
+    def mean_bound(self):
+        """The bound averaged over every launch the recorder saw."""
+        _, _, counts = self.summary()
+        return sum(self.bound(c, a[0].shape[1])[0] for c, a in
+                   zip(counts, self.launched)) / max(len(counts), 1)
 
 
 def phase12(scene, cfg):
@@ -1112,6 +1144,147 @@ def phase12(scene, cfg):
     return launches, (k5, k5r), (wall1, wall2)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the feature probes
+# --------------------------------------------------------------------------
+
+PROBE_DEFS = {  # each probe's def line in scripts/probe_treelet_features.py
+    "p_while": 42, "p_while_vec_carry": 71, "p_dma_smem": 103,
+    "p_red_when": 131, "p_red_dma": 153, "p_red_smem_dma": 182,
+    "p_onehot": 213, "p_when_mm": 251, "p_reshape_8x128": 300,
+    "p_packed_pair_flush": 322,
+}
+PROBE_REPS = 200
+
+
+def probe_work(name, args):
+    """(operations, their peak rate, bytes) that the probe's function needs
+    on these inputs: every input byte the output depends on read once, the
+    output written once.  The one-hot gather (P7) and histogram (P10) need
+    only their adds, not the dense contractions the kernels compute them
+    by."""
+    out = math.prod(fp.SPECS[name][1]) * 4
+    nb = [a.numel() * a.element_size() for a in args]
+    if name == "p_while":
+        n = max(int(args[0][0, 0]), 0)
+        return n * (n + 1) // 2, PEAK_FP32, nb[0] + out
+    if name == "p_while_vec_carry":
+        steps = max(10 - int(args[0].to(torch.int32).min()), 0)
+        return 2 * steps * args[0].numel(), PEAK_FP32, nb[0] + out
+    if name == "p_dma_smem":
+        return 0, PEAK_FP32, nb[0] + nb[1] // args[1].shape[0] + out
+    if name == "p_red_when":
+        return args[0].numel(), PEAK_FP32, nb[0] + out
+    if name in ("p_red_dma", "p_red_smem_dma"):
+        return (args[0].numel(), PEAK_FP32,
+                nb[0] + nb[1] // args[1].shape[0] + out)
+    if name == "p_onehot":  # the three chunk rows, two adds per column
+        return 2 * args[0].numel(), PEAK_FP32, nb[0] + 3 * nb[1] // 128 + out
+    if name == "p_when_mm":
+        if int(args[0][0]) <= 0:
+            return 0, PEAK_FP32, nb[0] + out
+        return 2 * 128 * 128 * 256, PEAK_BF16, nb[0] + nb[1] // 2 + out
+    if name == "p_reshape_8x128":
+        return 0, PEAK_FP32, nb[0] + out
+    if name == "p_packed_pair_flush":  # two bin adds a record, one a bin
+        return 2 * args[2].numel() + out // 4, PEAK_FP32, sum(nb) + out
+    raise KeyError(name)
+
+
+def probe_library(name, args):
+    """One PyTorch call of the probe's function on its inputs, checked
+    once against the plain version, as a zero-argument callable for
+    timing; None where no single call computes it."""
+    want = fp.PLAIN[name](*args)
+    if name == "p_dma_smem":
+        idx, tab = args
+        call = lambda: torch.index_select(tab, 0, idx)  # noqa: E731
+        got = call()[0]
+    elif name == "p_when_mm":  # the product of the bf16 operand
+        a = args[1][1].to(torch.bfloat16)
+        call = lambda: torch.matmul(a, a.T)  # noqa: E731
+        got = call().float()
+    elif name == "p_reshape_8x128":
+        x = args[0]
+        call = lambda: x.view(1, 1024).repeat(8, 1)  # noqa: E731
+        got = call()
+    elif name == "p_packed_pair_flush":
+        ib, jb, v = args
+        idx = (ib.long(), jb.long())
+        got = torch.zeros_like(want).index_put_(idx, v, accumulate=True)
+        grid = torch.zeros_like(want)
+        call = lambda: grid.index_put_(idx, v, accumulate=True)  # noqa: E731
+    else:
+        return None
+    torch.cuda.synchronize()
+    if name == "p_packed_pair_flush":  # v itself, not its bf16 halves
+        err = float((got - want).abs().max())
+        check(err <= fp.FLUSH_REL_TOL * float(want.abs().max()),
+              f"{name}: index_put_ differs by {err}")
+    else:
+        check(torch.equal(got, want), f"{name}: the library call differs")
+    return call
+
+
+def phase13():
+    """The feature probes through their entry point, then kernel against
+    plain and timed; returns their kernel entries."""
+    t0 = time.perf_counter()
+    records = fp.run_all("cuda")
+    for r in records:
+        print("    " + json.dumps(r), flush=True)
+    failed = [r for r in records if not r["ok"]]
+    check(not failed, f"probes failed: {failed}")
+    check([r["probe"] for r in records] == list(fp.NAMES), "probes missing")
+    check(all(r["launches"] == 1 for r in records),
+          "a probe's run did not launch its kernel once")
+    log(13, f"entry point: {len(records)} probes, each in a subprocess, "
+            f"each its kernel's one launch, each passing its check", t0)
+    t0 = time.perf_counter()
+    empty = cuda_ms(lambda: fp.empty_launch(DEV), PROBE_REPS)
+    entries = []
+    for r in records:
+        name = r["probe"]
+        args = fp.inputs(name, DEV)
+        wrapper, plain = fp.WRAPPERS[name], fp.PLAIN[name]
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        bitwise, err = fp.agree(name, got, plain(*args))
+        fp.check(name, args, got)
+        if name in ("p_red_when", "p_when_mm"):  # the branch not taken
+            other = (torch.zeros_like(args[0]), *args[1:])  # min 0, flag 0
+            fp.agree(name, wrapper(*other), plain(*other))
+        ms = cuda_ms(lambda: wrapper(*args), PROBE_REPS)
+        plain_ms = cuda_ms(lambda: plain(*args), 20)
+        lib = probe_library(name, args)
+        lib_ms = cuda_ms(lib, PROBE_REPS) if lib is not None else None
+        ops, peak, nbytes = probe_work(name, args)
+        bound = bound_ms(ops, nbytes, peak)
+        same = ("bitwise equal to" if bitwise
+                else "within 2^-16 of the largest bin of")
+        log(13, f"{name}: kernel {same} its plain version (max abs err "
+                f"{err:.3e}); kernel {ms:.5f} ms a launch by CUDA events over"
+                f" {PROBE_REPS} launches, an empty kernel launched the same "
+                f"way {empty:.5f} ms (at this size the time is launch "
+                f"overhead); plain {plain_ms:.5f} ms; library "
+                + (f"{lib_ms:.5f} ms" if lib_ms is not None else "none")
+                + f"; bound {bound[0]:.3e} ms ({bound[1]}: {ops} ops, "
+                f"{nbytes} bytes)")
+        entries.append(kernel_entry(
+            name, "light_transport_tpu_torch/csrc/probe_kernels.cu",
+            f"scripts/probe_treelet_features.py:{PROBE_DEFS[name]}",
+            r["launches"], err, ms, plain_ms, bound, lib_ms))
+    log(13, "probes timed", t0)
+    return entries
+
+
+def log_gap(name, launches, ms, bound):
+    """What a kernel loses on its main path against its bound: launches x
+    (mean time - mean bound), the order of the redesigns."""
+    log("gap", f"{name}: {launches} launches x ({ms:.4f} ms - {bound:.4f} "
+               f"ms) = {launches * (ms - bound):.3f} ms")
+
+
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
                  library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -1130,7 +1303,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    names = ["photon_kernel", "intersect_kernel", "treelet_kernel"]
+    names = ["photon_kernel", "intersect_kernel", "treelet_kernel",
+             "probe_kernels"]
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         libs = list(pool.map(_build.build, names))
     log(2, f"built {', '.join(p.name for p in libs)}", t0)
@@ -1143,6 +1317,7 @@ def main():
     phase5()
     launches, _ = phase6()
     ms, plain_ms, bound = phase7()
+    log_gap("photon_block", launches, ms, bound[0])
     t0 = time.perf_counter()
     glass = glass_scene(device=DEV)
     soft = soft_shadow_scene()
@@ -1167,6 +1342,7 @@ def main():
         entries.append(kernel_entry(
             rec.name, "light_transport_tpu_torch/csrc/intersect_kernel.cu",
             replaces, launched, err, ms, plain_ms, bound))
+        log_gap(rec.name, launched, rec.summary()[1], rec.mean_bound())
     del glass, soft, k3, k4
     scene, cfg, timings = big_mesh_scene()
     tab = scene.treelet
@@ -1188,6 +1364,9 @@ def main():
             rec.name, "light_transport_tpu_torch/csrc/treelet_kernel.cu",
             "light_transport_tpu/ops/pallas/treelet_kernel.py:204",
             k5_launches[rec.name], err, ms, plain_ms, bound))
+        log_gap(rec.name, k5_launches[rec.name], rec.summary()[1],
+                rec.mean_bound())
+    entries += phase13()
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -108,3 +108,30 @@ def load_treelet_kernel() -> ctypes.CDLL:
         lib.treelet_kernel_error_string.restype = ctypes.c_char_p
         _loaded["treelet_kernel"] = lib
     return lib
+
+
+# the probe library's launch functions and their tensor operands (each
+# also takes the output and the stream)
+PROBE_OPERANDS = {"p_while": 1, "p_while_vec_carry": 1, "p_dma_smem": 2,
+                  "p_red_when": 1, "p_red_dma": 2, "p_red_smem_dma": 2,
+                  "p_onehot": 2, "p_when_mm": 2, "p_reshape_8x128": 1,
+                  "p_packed_pair_flush": 3}
+
+
+def load_probe_kernels() -> ctypes.CDLL:
+    """The feature-probe library (P1-P10 and an empty kernel), built on
+    first use and bound once."""
+    lib = _loaded.get("probe_kernels")
+    if lib is None:
+        lib = ctypes.CDLL(str(build("probe_kernels")))
+        vp = ctypes.c_void_p
+        for name, n in PROBE_OPERANDS.items():
+            fn = getattr(lib, f"{name}_launch")
+            fn.argtypes = [vp] * (n + 2)
+            fn.restype = ctypes.c_int
+        lib.probe_empty_launch.argtypes = [vp]
+        lib.probe_empty_launch.restype = ctypes.c_int
+        lib.probe_kernel_error_string.argtypes = [ctypes.c_int]
+        lib.probe_kernel_error_string.restype = ctypes.c_char_p
+        _loaded["probe_kernels"] = lib
+    return lib
