@@ -20,16 +20,19 @@ script exits non-zero without the final result line):
      photons
   7. bench mode: bench_kernel throughput, and kernel against plain time
      per block at the main path's shapes
-  8. the intersector kernels K3 (dense) and K4 (gather) against their
-     plain versions, nearest and any hit, on real ray batches: camera and
-     bounce-1 rays of the glass preset (K3), camera and incoherent
-     interior rays of the soft-shadow scene (K4), inactive lanes in all
+  8. the intersector kernels K3 (dense), the cull kernel and K4 (gather)
+     against their plain versions, nearest and any hit, on real ray
+     batches: camera and bounce-1 rays of the glass preset (K3), camera and
+     incoherent interior rays of the soft-shadow scene (cull and K4, each
+     launch held bitwise), inactive lanes in all
   9. the glass preset at its preset size (100x100, 4 spp, depth 3)
      rendered through K3 and through the plain intersector from the same
      uniforms
  10. render main path: the soft-shadow scene (123,204 triangles, 241
-     clusters) at 400x400, 10 spp, depth 3 through K4, and a subset of
-     its lanes re-traced through the plain intersector
+     clusters) at 400x400, 10 spp, depth 3 through the cull kernel and K4,
+     their heaviest launches held bitwise against the plain versions, K4's
+     chunk size swept on its heaviest launches, a subset of the render's
+     lanes re-traced through the plain intersector, and a profile
  11. the big-mesh scene of scripts/bench_treelet_render.py (a
      4,202,100-triangle sphere in the Cornell box, 4,202,118 triangles)
      built from the port's modules, each build step timed; the treelet
@@ -130,6 +133,9 @@ PHOTON_OPS_PER_STEP = 260
 # operations per ray-triangle pair of the intersector: 22 multiplies, 16
 # adds, one divide and six compares (csrc/intersect_kernel.cu)
 PAIR_OPS = 45
+# operations per (ray, cluster box) slab test of the cull: 6 subtracts, 6
+# multiplies, 10 min/max and 3 compares (csrc/intersect_kernel.cu)
+CULL_OPS = 25
 SOFT_SHADOW_CFG = RenderConfig(width=400, height=400, spp=10, max_depth=3,
                                f_distance=3.5)
 # operations of the treelet walk, counted from csrc/treelet_kernel.cu: a
@@ -457,19 +463,22 @@ KERNELS = {  # wrapper -> (plain version, index of its pair-count operand)
     "intersect_dense": (ik.intersect_dense_reference, 3),
     "intersect_gather": (ik.intersect_gather_reference, 4),
 }
+# K4's chunk sizes timed on the heaviest launches (phase 10)
+CHUNK_SWEEP = (1, 2, 4, 8, 16, 32)
 
 
 @contextlib.contextmanager
 def plain_intersector():
-    """Both intersector wrappers replaced by their plain versions (the
-    dispatch reaches them through the module's globals).  Fails if a
-    kernel launched meanwhile: a dispatch that bound the wrappers
-    elsewhere would otherwise compare the kernel with itself."""
-    saved = {name: getattr(ik, name) for name in KERNELS}
+    """The intersector wrappers and the cull replaced by their plain
+    versions (the dispatch reaches them through the module's globals).
+    Fails if a kernel launched meanwhile: a dispatch that bound the
+    wrappers elsewhere would otherwise compare the kernel with itself."""
+    saved = {name: getattr(ik, name) for name in (*KERNELS, "tile_cull")}
     before = dict(ik.LAUNCHES)
     try:
         for name, (ref, _) in KERNELS.items():
             setattr(ik, name, lambda *a, _ref=ref: _ref(*a[:-1]))
+        ik.tile_cull = ik.tile_cull_reference
         yield
     finally:
         for name, fn in saved.items():
@@ -488,11 +497,13 @@ def launch_counted(name, fn, args):
     return out
 
 
-def compare_launch(label, args, got, want):
+def compare_launch(label, args, got, want, exact=False):
     """One launch's (best_t, best_tri) from the kernel against its plain
-    version on the same operands, to phase 8's limits; returns the
-    largest |t| difference where both hit (0 for an any-hit launch, whose
-    t and triangle are whichever hit the kernel found first)."""
+    version on the same operands, to phase 8's limits, or with ``exact``
+    bitwise (nearest hit: t and triangle of every ray; any hit: the
+    hit mask); returns the largest |t| difference where both hit (0 for
+    an any-hit launch, whose t and triangle are whichever hit the kernel
+    found first)."""
     any_hit = bool(args[-1])
     (tk, ck), (tp, cp) = got, want
     vk, vp = ck >= 0, cp >= 0
@@ -513,6 +524,12 @@ def compare_launch(label, args, got, want):
     if not any_hit:
         check(rel <= 1e-5, f"{label}: t differs by rel {rel}")
         check(same >= 0.999, f"{label}: same triangle on {same}")
+    if exact:
+        check(n_bad == 0, f"{label}: not bitwise, {n_bad} hit mismatches")
+        check(any_hit or (torch.equal(tk.view(torch.int32),
+                                      tp.view(torch.int32))
+                          and torch.equal(ck, cp)),
+              f"{label}: t or triangle not bitwise")
     return err
 
 
@@ -520,10 +537,12 @@ class Recorder:
     """Wraps an intersector wrapper while installed: CUDA events around
     each launch, the admitted (tile, cluster) pairs of each, and the
     operands of each, for holding the kernel against its plain version on
-    the heaviest launches.  Fails if a call it sees launches no kernel."""
+    the heaviest launches (K4 bitwise).  Fails if a call it sees launches
+    no kernel."""
 
     def __init__(self, name):
         self.name = name
+        self.exact = name == "intersect_gather"
         self.events, self.pairs, self.launched = [], [], []
 
     def __call__(self, *args):
@@ -551,6 +570,23 @@ class Recorder:
         pairs = [int(p) for p in self.pairs]
         return len(ms), sum(ms) / max(len(ms), 1), pairs
 
+    def per_tile(self):
+        """Each launch's admitted clusters per tile: (mean, max)."""
+        cnts = [a[KERNELS[self.name][1]] for _, a in self.launched]
+        return [(round(float(c.float().mean()), 2), int(c.max()))
+                for c in cnts]
+
+    def hold_every(self, label):
+        """Every recorded launch again through the kernel and through its
+        plain version on the same operands (K4 bitwise)."""
+        plain = KERNELS[self.name][0]
+        for k, (pairs, args) in enumerate(self.launched):
+            mode = "any-hit" if args[-1] else "nearest"
+            compare_launch(f"{label}, {self.name} launch {k} ({mode}, "
+                           f"{int(pairs)} pairs)", args,
+                           launch_counted(self.name, self.wrapped, args),
+                           plain(*args[:-1]), exact=self.exact)
+
     def kernel_and_plain(self):
         """The nearest-hit and the any-hit launch that admitted the most
         pairs, each through the kernel and through its plain version on
@@ -572,7 +608,7 @@ class Recorder:
             err = compare_launch(
                 f"{self.name}, heaviest {mode} launch of the run "
                 f"({int(args[KERNELS[self.name][1]].sum())} pairs)", args,
-                got, want[0])
+                got, want[0], exact=self.exact)
             held[any_hit] = (args, ms_p, err)
         args, ms_p, err = held[False]
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
@@ -595,6 +631,87 @@ class Recorder:
             len(self.launched), 1)
 
 
+class CullRecorder:
+    """Wraps ``ik.tile_cull`` while installed: CUDA events around each
+    launch and its operands and results, for holding the cull kernel
+    against the plain cull (tile_cluster_mask + cluster_ids): equal counts
+    and equal first-``cnt`` ids per tile."""
+
+    name = "tile_cull"
+
+    def __init__(self):
+        self.events, self.launched = [], []
+
+    def __call__(self, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch_counted(self.name, self.wrapped, args)
+        b.record()
+        self.events.append((a, b))
+        self.launched.append((args, out))
+        return out
+
+    def __enter__(self):
+        self.wrapped = ik.tile_cull
+        ik.tile_cull = self
+        return self
+
+    def __exit__(self, *exc):
+        ik.tile_cull = self.wrapped
+
+    def summary(self):
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return len(ms), sum(ms) / max(len(ms), 1)
+
+    @staticmethod
+    def hold(label, args, got):
+        """One launch's (ids, cnt) against the plain cull's; returns the
+        plain version's ms."""
+        want = []
+        ms_p = time_once(lambda: want.append(ik.tile_cull_reference(*args)))
+        (ids, cnt), (ids_p, cnt_p) = got, want[0]
+        take = (torch.arange(ids.shape[1], device=DEV)[None, :]
+                < cnt[:, None])
+        n_cnt = int((cnt != cnt_p).sum())
+        same = n_cnt == 0 and torch.equal(ids[take], ids_p[take])
+        log(10, f"{label}: {cnt.shape[0]} tiles, admitted {int(cnt.sum())} "
+                f"pairs (plain {int(cnt_p.sum())}); counts differ on "
+                f"{n_cnt} tiles, ids equal {same}")
+        check(same, f"{label}: the cull kernel differs from the plain cull")
+        return ms_p
+
+    def hold_every(self, label):
+        for k, (args, got) in enumerate(self.launched):
+            self.hold(f"{label}, tile_cull launch {k}", args, got)
+
+    def kernel_and_plain(self):
+        """The launch that admitted the most pairs, again through the
+        kernel and through the plain cull.  Returns the kernel's ms (mean
+        of 5 after a warm launch), the plain cull's ms (one call) and the
+        bound."""
+        args = max(self.launched, key=lambda ag: int(ag[1][1].sum()))[0]
+        got = launch_counted(self.name, self.wrapped, args)
+        ms_p = self.hold("tile_cull, heaviest launch of the run", args, got)
+        ms = cuda_ms(lambda: self.wrapped(*args), 5)
+        return ms, ms_p, self.bound(args, got)
+
+    @staticmethod
+    def bound(args, got):
+        """Each ray's slab test against every box, or the bytes: each
+        ray's origin, direction and interval, the boxes, the admitted ids
+        and the counts."""
+        feats, c_lo = args[0], args[2]
+        n, c = feats.shape[0], c_lo.shape[0]
+        nbytes = n * 8 * 4 + c * 6 * 4 + int(got[1].sum()) * 4 + n // 128 * 4
+        return bound_ms(n * c * CULL_OPS, nbytes)
+
+    def mean_bound(self):
+        return sum(self.bound(a, g)[0] for a, g in self.launched) / max(
+            len(self.launched), 1)
+
+
 def compare_hits(label, scene, o, d, active, max_dist):
     """Nearest and any-hit queries of one ray batch through the kernels and
     through the plain versions; returns the largest |t| difference where
@@ -606,9 +723,13 @@ def compare_hits(label, scene, o, d, active, max_dist):
 
     n = o.shape[0]
     recs = [Recorder(name) for name in KERNELS]
-    with recs[0], recs[1]:
+    with recs[0], recs[1], CullRecorder() as cull:
         hk = scene_intersect(scene, o, d, active=active)
         ok = scene_occluded(scene, o, d, max_dist, active=active)
+        # each launch of the cull and of K4 again, held bitwise
+        cull.hold_every(label)
+        if recs[1].launched:
+            recs[1].hold_every(label)
     with plain_intersector():
         hp = scene_intersect(scene, o, d, active=active)
         op = scene_occluded(scene, o, d, max_dist, active=active)
@@ -733,7 +854,8 @@ def phase9(glass):
 
 
 def phase10(scene):
-    """The soft-shadow scene at 400x400, 10 spp, depth 3 through K4."""
+    """The soft-shadow scene at 400x400, 10 spp, depth 3 through the cull
+    kernel and K4."""
     cfg = SOFT_SHADOW_CFG
     n_lanes = cfg.width * cfg.height * cfg.spp
     n_clusters = -(-scene.mesh.num_triangles // ik.TRI_TILE)
@@ -746,18 +868,26 @@ def phase10(scene):
     wall1 = time.perf_counter() - t0
     launches = dict(ik.LAUNCHES)
     t0 = time.perf_counter()
-    with Recorder("intersect_gather") as rec:
+    with Recorder("intersect_gather") as rec, CullRecorder() as cull:
         img2 = lt.render(scene, cfg, seed=0)
         torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
     n, ms, pairs = rec.summary()
+    blocks = ik.gather_blocks_per_sm()
     log(10, f"soft shadow {cfg.width}x{cfg.height}x{cfg.spp} depth "
             f"{cfg.max_depth} ({scene.mesh.num_triangles} triangles, "
             f"{n_lanes} lanes): first render {wall1:.3f} s, second "
             f"{wall2:.3f} s; K4 launches {launches['intersect_gather']} "
-            f"(K3 {launches['intersect_dense']}), {ms:.3f} ms per launch by "
-            f"CUDA events, admitted (tile, cluster) pairs per launch {pairs}"
-            f" of {(n_lanes // ik.RAY_TILE) * n_clusters}")
+            f"(K3 {launches['intersect_dense']}, cull "
+            f"{launches['tile_cull']}), {ms:.3f} ms per launch by CUDA "
+            f"events, cull {cull.summary()[1]:.3f} ms per query; admitted "
+            f"(tile, cluster) pairs per launch {pairs} of "
+            f"{(n_lanes // ik.RAY_TILE) * n_clusters}; admitted per tile "
+            f"(mean, max) per launch {rec.per_tile()}; CHUNK "
+            f"{ik.GATHER_CHUNK}, K4 resident blocks per SM {blocks} "
+            f"({blocks * ik.RAY_TILE // 32} warps)")
+    check(blocks * ik.RAY_TILE // 32 >= 20,
+          f"K4 keeps {blocks} blocks per SM: fewer than 20 warps")
     # re-trace every 97th lane through the plain intersector
     t0 = time.perf_counter()
     o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
@@ -776,14 +906,36 @@ def phase10(scene):
     check(mean > 0.0, "soft-shadow image is black")
     check(frac >= 0.99, f"plain re-trace: {frac} of lanes agree")
     check(launches["intersect_gather"] > 0, "the render launched no K4")
-    profile_render(scene, cfg, wall2)
-    return launches["intersect_gather"], rec, (wall1, wall2)
+    check(launches["tile_cull"] == launches["intersect_gather"],
+          "the render's K4 launches were not fed by the cull kernel")
+    cull.hold_every("soft-shadow render")
+    sweep_chunk(rec)
+    profile_render(scene, cfg, wall2, show=("tile_cull",))
+    return launches, rec, cull, (wall1, wall2)
 
 
-def profile_render(scene, cfg, wall, phase=10):
+def sweep_chunk(rec):
+    """K4 on the render's heaviest nearest-hit and any-hit launches at each
+    chunk size of CHUNK_SWEEP and at one block per tile (chunk = C): ms
+    per launch by CUDA events (mean of 3 after a warm launch)."""
+    for any_hit in (False, True):
+        runs = [a for _, a in rec.launched if bool(a[-1]) == any_hit]
+        args = max(runs, key=lambda a: int(a[4].sum()))
+        c = args[2].shape[0]
+        times = {chunk: round(cuda_ms(lambda: ik.intersect_gather_keys(
+            *args[:5], any_hit=any_hit, chunk=chunk), 3), 3)
+            for chunk in (*CHUNK_SWEEP, c)}
+        mode = "any-hit" if any_hit else "nearest"
+        log(10, f"K4 chunk sweep, heaviest {mode} launch "
+                f"({int(args[4].sum())} pairs): ms per launch by chunk "
+                f"{times}")
+
+
+def profile_render(scene, cfg, wall, phase=10, show=()):
     """Where a render's device time goes: one more render under
     torch.profiler, device time by kernel, and the device's busy share of
-    the unprofiled render's wall time."""
+    the unprofiled render's wall time.  Kernels whose name holds one of
+    ``show`` are printed after the top ten if they are not in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -802,10 +954,16 @@ def profile_render(scene, cfg, wall, phase=10):
             f"{busy / (wall * 1e3):.3f} of the unprofiled render's wall "
             f"{wall * 1e3:.1f} ms; {sum(c for _, c, _ in by_kernel)} "
             f"launches of {len(by_kernel)} kernels, the top ten:")
-    for t, count, key in by_kernel[:10]:
+    rest = [k for k in by_kernel[10:] if any(w in k[2] for w in show)]
+    for k, (t, count, key) in enumerate(by_kernel[:10] + rest):
+        if k == 10:
+            print("    and below the top ten:", flush=True)
         print(f"    {t / 1e3:9.3f} ms {t / 1e3 / busy:6.3f} x{count:<5d} "
               f"{key[:90]}", flush=True)
     check(busy > 0, "the profiler saw no device time")
+    for w in show:
+        check(any(w in key for _, _, key in by_kernel),
+              f"the profile holds no {w}")
 
 
 # --------------------------------------------------------------------------
@@ -1325,7 +1483,7 @@ def main():
            f"soft shadow {soft.mesh.num_triangles}", t0)
     phase8(glass, soft)
     k3_launches, k3 = phase9(glass)
-    k4_launches, k4, _ = phase10(soft)
+    k4_launches, k4, cull, _ = phase10(soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -1333,7 +1491,7 @@ def main():
     for rec, launched, replaces in (
             (k3, k3_launches,
              "light_transport_tpu/ops/pallas/intersect_kernel.py:67"),
-            (k4, k4_launches,
+            (k4, k4_launches["intersect_gather"],
              "light_transport_tpu/ops/pallas/intersect_kernel.py:129")):
         ms, plain_ms, bound, pairs, err = rec.kernel_and_plain()
         log(10, f"{rec.name} on its heaviest nearest-hit launch ({pairs} "
@@ -1343,7 +1501,17 @@ def main():
             rec.name, "light_transport_tpu_torch/csrc/intersect_kernel.cu",
             replaces, launched, err, ms, plain_ms, bound))
         log_gap(rec.name, launched, rec.summary()[1], rec.mean_bound())
-    del glass, soft, k3, k4
+    ms, plain_ms, bound = cull.kernel_and_plain()
+    log(10, f"tile_cull on its heaviest query: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    # not a TPU kernel: it replaces the XLA cull in front of K4
+    entries.append(kernel_entry(
+        "tile_cull", "light_transport_tpu_torch/csrc/intersect_kernel.cu",
+        "light_transport_tpu/ops/pallas/intersect_kernel.py:276",
+        k4_launches["tile_cull"], 0.0, ms, plain_ms, bound))
+    log_gap("tile_cull", k4_launches["tile_cull"], cull.summary()[1],
+            cull.mean_bound())
+    del glass, soft, k3, k4, cull
     scene, cfg, timings = big_mesh_scene()
     tab = scene.treelet
     check(tab is not None, "with_bvh attached no treelet tables")

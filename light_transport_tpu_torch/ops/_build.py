@@ -78,16 +78,20 @@ def load_photon_kernel() -> ctypes.CDLL:
 
 
 def load_intersect_kernel() -> ctypes.CDLL:
-    """The intersector library (K3 and K4), built on first use and bound
-    once."""
+    """The intersector library (K3, the cull and K4), built on first use
+    and bound once."""
     lib = _loaded.get("intersect_kernel")
     if lib is None:
         lib = ctypes.CDLL(str(build("intersect_kernel")))
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.intersect_dense_launch.argtypes = [vp] * 4 + [i] * 3 + [vp] * 3
         lib.intersect_dense_launch.restype = ctypes.c_int
-        lib.intersect_gather_launch.argtypes = [vp] * 5 + [i] * 3 + [vp] * 3
+        lib.tile_cull_launch.argtypes = [vp] * 4 + [i] * 2 + [vp] * 3
+        lib.tile_cull_launch.restype = ctypes.c_int
+        lib.intersect_gather_launch.argtypes = [vp] * 5 + [i] * 4 + [vp] * 2
         lib.intersect_gather_launch.restype = ctypes.c_int
+        lib.intersect_gather_blocks_per_sm.argtypes = [vp]
+        lib.intersect_gather_blocks_per_sm.restype = ctypes.c_int
         lib.intersect_kernel_error_string.argtypes = [ctypes.c_int]
         lib.intersect_kernel_error_string.restype = ctypes.c_char_p
         _loaded["intersect_kernel"] = lib

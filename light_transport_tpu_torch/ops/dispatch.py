@@ -6,9 +6,9 @@ package's triangle thresholds:
 * meshes of 48 triangles or fewer go to the brute force of
   ``ops.intersect`` on either device;
 * meshes up to ``MXU_MAX_TRIS`` triangles go to the cluster-culled
-  intersector of ``ops.intersect_kernel`` (the CUDA kernels K3 and K4 for
-  tensors on the card, their plain versions for CPU tensors), through
-  coherence sorting;
+  intersector of ``ops.intersect_kernel`` (the CUDA kernels K3, or the
+  cull kernel and K4, for tensors on the card, their plain versions for
+  CPU tensors), through coherence sorting;
 * past ``MXU_MAX_TRIS`` every query of a scene with a BVH walks it through
   the treelet kernels of ``ops.treelet_kernel`` (K5 and K5r for tensors on
   the card, the plain roped walk of ``accel.bvh`` for CPU tensors).  With
@@ -55,13 +55,17 @@ def _use_cluster_intersector(scene, coherent: bool = False) -> bool:
 
 
 def _tables(scene):
-    """The mesh's packed weights and cluster bounds, built once."""
+    """The mesh's packed weights, cluster bounds and (for meshes that take
+    the gather kernel K4) triangle-major cluster records, built once per
+    scene."""
     from light_transport_tpu_torch.ops import intersect_kernel as ik
 
     mesh = scene.mesh
     if "cluster" not in mesh.derived:
-        mesh.derived["cluster"] = (ik.pack_tri_weights(mesh),
-                                   ik.cluster_bounds(mesh))
+        w = ik.pack_tri_weights(mesh)
+        gather = w.shape[2] // ik.TRI_TILE >= ik.GATHER_MIN_CLUSTERS
+        mesh.derived["cluster"] = (w, ik.cluster_bounds(mesh),
+                                   ik.cluster_records(w) if gather else None)
     return mesh.derived["cluster"]
 
 
@@ -123,11 +127,11 @@ def scene_intersect(scene, origins, directions,
         )
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
-        weights, clusters = _tables(scene)
+        weights, clusters, records = _tables(scene)
         return sorted_apply(
             lambda o, d, tm: intersect_rays_pallas(
                 o, d, scene.mesh, tri_weights=weights, t_max=tm,
-                clusters=clusters),
+                clusters=clusters, records=records),
             scene.mesh, origins, directions, _t_max(origins, active),
             inactive=None if active is None else ~active)
     if _big_mesh(scene, origins):
@@ -147,11 +151,11 @@ def scene_occluded(scene, origins, directions, max_dist,
         )
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
-        weights, clusters = _tables(scene)
+        weights, clusters, records = _tables(scene)
         return sorted_apply(
             lambda o, d, m: intersect_rays_pallas(
                 o, d, scene.mesh, tri_weights=weights, any_hit=True,
-                max_dist=m, clusters=clusters),
+                max_dist=m, clusters=clusters, records=records),
             scene.mesh, origins, directions,
             _t_max(origins, active, max_dist),
             inactive=None if active is None else ~active)

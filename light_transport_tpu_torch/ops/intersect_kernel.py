@@ -1,5 +1,5 @@
-"""Cluster-culled brute-force intersection: the CUDA kernels K3 and K4 and
-their plain PyTorch versions.
+"""Cluster-culled brute-force intersection: the CUDA kernels K3, K4 and the
+cull that feeds K4, and their plain PyTorch versions.
 
 The counterpart of ``light_transport_tpu.ops.pallas.intersect_kernel``.
 Each ray tests the triangles of the 512-triangle clusters whose bounding
@@ -14,17 +14,20 @@ spatially compact, so coherent tiles admit few clusters.
   order, and ``csrc/intersect_kernel.cu`` in the same order, so the two
   round alike.  All of it is FP32.
 * Meshes of fewer than 16 clusters go through the dense kernel (K3,
-  ``intersect_dense``): every cluster in turn, the rejected ones
-  skipped.  Larger meshes go through the gather kernel (K4,
-  ``intersect_gather``): each tile's list of admitted cluster ids.  The
-  TPU kernel capped that list and chunked the rays for its 1 MB scalar
-  memory; the lists here live in device memory, uncapped.
+  ``intersect_dense``): the torch-op cull mask, then every cluster in
+  turn, the rejected ones skipped.  Larger meshes go through the cull
+  kernel (``tile_cull``: each tile's admitted cluster ids and their
+  count) and the gather kernel (K4, ``intersect_gather``), which reads
+  the triangle-major records of :func:`cluster_records` and merges the
+  (tile, chunk) blocks of a tile through 64-bit keys (:func:`hit_keys`).
+  The TPU kernel capped the id list and chunked the rays for its 1 MB
+  scalar memory; the lists here live in device memory, uncapped.
 * Each ray keeps the nearest hit; at equal t the lowest triangle index
   wins (the TPU kernel broke exact ties by the lowest ``tri mod 128``).
 
-``intersect_dense`` and ``intersect_gather`` launch their kernel for CUDA
-tensors and run the plain version for CPU tensors; they have no other
-path.  ``LAUNCHES`` counts the kernel launches of each.
+``intersect_dense``, ``tile_cull`` and ``intersect_gather`` launch their
+kernel for CUDA tensors and run the plain version for CPU tensors; they
+have no other path.  ``LAUNCHES`` counts the kernel launches of each.
 """
 
 from __future__ import annotations
@@ -47,10 +50,24 @@ GATHER_MIN_CLUSTERS = 16
 _MASK_ELEMS = 1 << 25
 # rays per piece of the plain version's (rays, 512) temporaries
 _PLAIN_CHUNK = 8192
+# (feature row, weight block) of the 19 non-zero weight rows, in the order
+# the kernels read them: det rows 0-2, u rows 0-5, v rows 0-5, t rows 6-9
+STAGED_ROWS = (tuple((r, 0) for r in range(3))
+               + tuple((r, 1) for r in range(6))
+               + tuple((r, 2) for r in range(6))
+               + tuple((r, 3) for r in range(6, 10)))
+REC_FLOATS = 20  # a triangle's record: the 19 rows and a pad (80 B)
+# admitted clusters per K4 block: a tile's list is cut into chunks of this
+# many, one block each (4 ran fastest of 1-32 and one block per tile on
+# the soft-shadow render's heaviest launches on an H100: chip_smoke.py
+# phase 10's sweep)
+GATHER_CHUNK = 4
+# the key of "no hit": above every hit's key (int64 max)
+NO_HIT_KEY = (1 << 63) - 1
 
-# kernel launches made through intersect_dense / intersect_gather (read and
-# reset by callers)
-LAUNCHES = {"intersect_dense": 0, "intersect_gather": 0}
+# kernel launches made through intersect_dense / tile_cull /
+# intersect_gather (read and reset by callers)
+LAUNCHES = {"intersect_dense": 0, "tile_cull": 0, "intersect_gather": 0}
 
 
 def pack_tri_weights(mesh) -> torch.Tensor:
@@ -78,6 +95,19 @@ def cluster_weights(tri_weights: torch.Tensor) -> torch.Tensor:
     c = tri_weights.shape[2] // TRI_TILE
     return (tri_weights.reshape(16, 4, c, TRI_TILE).permute(2, 0, 1, 3)
             .reshape(c, 16, 4 * TRI_TILE).contiguous())
+
+
+def cluster_records(tri_weights: torch.Tensor) -> torch.Tensor:
+    """(C, TRI_TILE, REC_FLOATS) f32 triangle-major records: triangle k of
+    cluster c holds its 19 non-zero weights in :data:`STAGED_ROWS` order
+    and a zero pad, so a cluster is one contiguous 40,960 B record.  K4's
+    layout, built once per scene."""
+    c = tri_weights.shape[2] // TRI_TILE
+    rows = torch.stack([tri_weights[r, b] for r, b in STAGED_ROWS], dim=-1)
+    rec = torch.zeros((c * TRI_TILE, REC_FLOATS), dtype=torch.float32,
+                      device=tri_weights.device)
+    rec[:, :len(STAGED_ROWS)] = rows
+    return rec.reshape(c, TRI_TILE, REC_FLOATS)
 
 
 def cluster_bounds(mesh):
@@ -143,31 +173,50 @@ def cluster_ids(mask: torch.Tensor):
     return ids.to(torch.int32), mask.sum(dim=1, dtype=torch.int32)
 
 
+def hit_keys(t: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order as (t, tri): the order-preserving bits of t
+    (-0 read as +0) above the triangle index.  K4 merges its blocks by the
+    minimum key; only hits with t < BIG and tri >= 0 get one."""
+    b = torch.where(t == 0.0, 0.0, t).view(torch.int32)
+    s = torch.where(b < 0, b ^ 0x7FFFFFFF, b).to(torch.int64)
+    return (s << 32) | tri.to(torch.int64)
+
+
+def unpack_hit_keys(keys: torch.Tensor):
+    """(best_t, best_tri) of int64 keys; :data:`NO_HIT_KEY` gives BIG and
+    -1, as the sequential scan leaves a ray without a hit."""
+    s = (keys >> 32).to(torch.int32)
+    t = torch.where(s < 0, s ^ 0x7FFFFFFF, s).view(torch.float32)
+    none = keys == NO_HIT_KEY
+    return (torch.where(none, BIG, t),
+            torch.where(none, -1, (keys & 0xFFFFFFFF).to(torch.int32)))
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
-def _cluster_hits(f, tm, w):
-    """Hits of rays ``f`` (n, 16) against one cluster's weights ``w``
-    (16, 4 * TRI_TILE): ``(t, valid)``, each (n, TRI_TILE).  The dot
-    products run element by element in the kernel's order."""
-    T = TRI_TILE
+def _cluster_hits(f, tm, rows):
+    """Hits of rays ``f`` (n, 16) against one cluster's 19 weight rows
+    ``rows`` (19, TRI_TILE, in :data:`STAGED_ROWS` order): ``(t, valid)``,
+    each (n, TRI_TILE).  The dot products run element by element in the
+    kernels' order."""
 
-    def col(r, b):
-        return w[r, b * T:(b + 1) * T][None, :]
+    def row(i):
+        return rows[i][None, :]
 
     def x(k):
         return f[:, k:k + 1]
 
-    det = (x(0) * col(0, 0) + x(1) * col(1, 0)) + x(2) * col(2, 0)
-    un = x(0) * col(0, 1) + x(1) * col(1, 1)
-    vn = x(0) * col(0, 2) + x(1) * col(1, 2)
+    det = (x(0) * row(0) + x(1) * row(1)) + x(2) * row(2)
+    un = x(0) * row(3) + x(1) * row(4)
+    vn = x(0) * row(9) + x(1) * row(10)
     for k in range(2, 6):
-        un = un + x(k) * col(k, 1)
-        vn = vn + x(k) * col(k, 2)
-    tn = x(6) * col(6, 3) + x(7) * col(7, 3)
-    tn = tn + x(8) * col(8, 3)
-    tn = tn + x(9) * col(9, 3)
+        un = un + x(k) * row(3 + k)
+        vn = vn + x(k) * row(9 + k)
+    tn = x(6) * row(15) + x(7) * row(16)
+    tn = tn + x(8) * row(17)
+    tn = tn + x(9) * row(18)
     ok = det.abs() > DET_EPS
     inv = torch.where(ok, 1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
     u = un * inv
@@ -178,20 +227,36 @@ def _cluster_hits(f, tm, w):
     return t, valid
 
 
-def _reference(feats, tminmax, w_c, admitted):
-    """Plain nearest hit over the admitted (tile, cluster) pairs: clusters
-    ascending, the lowest triangle index on a tie.  Returns (best_t,
-    best_tri) as the kernels write them (BIG and -1 for no hit)."""
+def _weight_rows(w_c):
+    """Cluster j's 19 weight rows of the (C, 16, 4 * TRI_TILE) weights."""
+    r, b = (torch.tensor(x, device=w_c.device) for x in zip(*STAGED_ROWS))
+    return lambda j: w_c[j].reshape(16, 4, TRI_TILE)[r, b]
+
+
+def _record_rows(recs):
+    """Cluster j's 19 weight rows of the (C, TRI_TILE, 20) records."""
+    return lambda j: recs[j, :, :len(STAGED_ROWS)].T
+
+
+def _reference(feats, tminmax, rows_of, admitted):
+    """Plain nearest hit over the admitted (tile, cluster) pairs
+    (``admitted`` (tiles, C) bool; ``rows_of(j)`` cluster j's weight rows):
+    clusters ascending, the lowest triangle index on a tie.  Returns
+    (best_t, best_tri) as the kernels write them (BIG and -1 for no
+    hit)."""
     n = feats.shape[0]
     dev = feats.device
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     tile = torch.arange(n, device=dev) // RAY_TILE
-    for j in range(w_c.shape[0]):
+    for j in range(admitted.shape[1]):
         rays = torch.nonzero(admitted[tile, j]).flatten()
+        if rays.shape[0] == 0:
+            continue
+        rows = rows_of(j)
         for s in range(0, rays.shape[0], _PLAIN_CHUNK):
             r = rays[s:s + _PLAIN_CHUNK]
-            t, valid = _cluster_hits(feats[r], tminmax[r], w_c[j])
+            t, valid = _cluster_hits(feats[r], tminmax[r], rows)
             t = torch.where(valid, t, BIG)
             k = torch.argmin(t, dim=1)
             tk = torch.gather(t, 1, k[:, None])[:, 0]
@@ -204,16 +269,42 @@ def _reference(feats, tminmax, w_c, admitted):
 
 def intersect_dense_reference(feats, tminmax, w_c, mask):
     """Plain version of K3: ``mask`` (tiles, C) bool."""
-    return _reference(feats, tminmax, w_c, mask)
+    return _reference(feats, tminmax, _weight_rows(w_c), mask)
 
 
-def intersect_gather_reference(feats, tminmax, w_c, ids, cnt):
-    """Plain version of K4: each tile's first ``cnt`` entries of ``ids``."""
-    tiles, c = ids.shape
-    admitted = torch.zeros((tiles, c), dtype=torch.bool, device=ids.device)
-    take = torch.arange(c, device=ids.device)[None, :] < cnt[:, None]
+def tile_cull_reference(feats, tminmax, c_lo, c_hi):
+    """Plain version of the cull kernel: :func:`tile_cluster_mask` of the
+    features' origins and directions, compacted by :func:`cluster_ids`."""
+    return cluster_ids(tile_cluster_mask(feats[:, 6:9], feats[:, 0:3],
+                                         tminmax, c_lo, c_hi))
+
+
+def intersect_gather_reference(feats, tminmax, recs, ids, cnt):
+    """Plain version of K4: each tile's first ``cnt`` entries of ``ids``
+    (``recs`` the (C, TRI_TILE, 20) records), scanned in order."""
+    tiles, width = ids.shape
+    admitted = torch.zeros((tiles, recs.shape[0]), dtype=torch.bool,
+                           device=ids.device)
+    take = torch.arange(width, device=ids.device)[None, :] < cnt[:, None]
     admitted[torch.nonzero(take, as_tuple=True)[0], ids[take].long()] = True
-    return _reference(feats, tminmax, w_c, admitted)
+    return _reference(feats, tminmax, _record_rows(recs), admitted)
+
+
+def intersect_gather_split_reference(feats, tminmax, recs, ids, cnt,
+                                     chunk=GATHER_CHUNK):
+    """K4's schedule in plain form: each tile's list cut into chunks of
+    ``chunk`` clusters, each chunk's nearest hit by
+    :func:`intersect_gather_reference`, the chunks merged by the minimum
+    :func:`hit_keys` key.  Equals the sequential scan bitwise."""
+    keys = torch.full((feats.shape[0],), NO_HIT_KEY, dtype=torch.int64,
+                      device=feats.device)
+    for first in range(0, ids.shape[1], chunk):
+        part = (cnt - first).clamp(0, chunk).to(torch.int32)
+        t, tri = intersect_gather_reference(feats, tminmax, recs,
+                                            ids[:, first:first + chunk], part)
+        keys = torch.where(tri >= 0, torch.minimum(keys, hit_keys(t, tri)),
+                           keys)
+    return unpack_hit_keys(keys)
 
 
 # --------------------------------------------------------------------------
@@ -231,38 +322,32 @@ def _check(t: torch.Tensor, dtype, shape, name: str, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name, feats, tminmax, w_c, lists, any_hit):
-    """Check the operands and launch ``name``'s kernel; returns (best_t,
-    best_tri)."""
-    from light_transport_tpu_torch.ops._build import load_intersect_kernel
-
-    dev = feats.device
+def _tiles(name, feats, tminmax):
+    """Check the rays' operands; returns the number of ray tiles."""
     n = feats.shape[0]
     if n % RAY_TILE:
         raise ValueError(f"{name}: {n} rays is not a multiple of {RAY_TILE}")
-    tiles, c = n // RAY_TILE, w_c.shape[0]
-    _check(feats, torch.float32, (n, 16), "feats", dev)
-    _check(tminmax, torch.float32, (n, 2), "tminmax", dev)
-    _check(w_c, torch.float32, (c, 16, 4 * TRI_TILE), "weights", dev)
-    _check(lists[0], torch.int32, (tiles, c), "mask/ids", dev)
-    if len(lists) > 1:
-        _check(lists[1], torch.int32, (tiles,), "cnt", dev)
-    best_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    best_tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    if tiles == 0:
-        return best_t, best_tri
+    _check(feats, torch.float32, (n, 16), "feats", feats.device)
+    _check(tminmax, torch.float32, (n, 2), "tminmax", feats.device)
+    return n // RAY_TILE
+
+
+def _run(name, dev, *args):
+    """Call ``<name>_launch`` on ``dev``'s current stream; raises on a CUDA
+    error and counts the launch."""
+    from light_transport_tpu_torch.ops._build import load_intersect_kernel
+
     lib = load_intersect_kernel()
-    vp = ctypes.c_void_p
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(lib, f"{name}_launch")(
-        vp(feats.data_ptr()), vp(tminmax.data_ptr()), vp(w_c.data_ptr()),
-        *(vp(x.data_ptr()) for x in lists), tiles, c, int(any_hit),
-        vp(best_t.data_ptr()), vp(best_tri.data_ptr()), vp(stream))
+        *args, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} "
-                           f"({lib.intersect_kernel_error_string(rc).decode()})")
+        msg = lib.intersect_kernel_error_string(rc).decode()
+        raise RuntimeError(f"{name}_launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
-    return best_t, best_tri
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def _device_type(t: torch.Tensor, name: str) -> str:
@@ -275,29 +360,95 @@ def intersect_dense(feats, tminmax, w_c, mask, any_hit=False):
     """K3: on the card the dense kernel, for CPU tensors
     :func:`intersect_dense_reference`.  ``mask`` (tiles, C) bool.  Returns
     (best_t, best_tri) per padded ray."""
-    if _device_type(feats, "intersect_dense") == "cuda":
-        return _launch("intersect_dense", feats, tminmax, w_c,
-                       (mask.to(torch.int32),), any_hit)
-    return intersect_dense_reference(feats, tminmax, w_c, mask)
+    if _device_type(feats, "intersect_dense") == "cpu":
+        return intersect_dense_reference(feats, tminmax, w_c, mask)
+    dev = feats.device
+    tiles, c = _tiles("intersect_dense", feats, tminmax), w_c.shape[0]
+    mask = mask.to(torch.int32)
+    _check(w_c, torch.float32, (c, 16, 4 * TRI_TILE), "weights", dev)
+    _check(mask, torch.int32, (tiles, c), "mask", dev)
+    best_t = torch.empty((feats.shape[0],), dtype=torch.float32, device=dev)
+    best_tri = torch.empty((feats.shape[0],), dtype=torch.int32, device=dev)
+    if tiles:
+        _run("intersect_dense", dev, _ptr(feats), _ptr(tminmax), _ptr(w_c),
+             _ptr(mask), tiles, c, int(any_hit), _ptr(best_t), _ptr(best_tri))
+    return best_t, best_tri
 
 
-def intersect_gather(feats, tminmax, w_c, ids, cnt, any_hit=False):
-    """K4: on the card the gather kernel, for CPU tensors
-    :func:`intersect_gather_reference`."""
-    if _device_type(feats, "intersect_gather") == "cuda":
-        return _launch("intersect_gather", feats, tminmax, w_c, (ids, cnt),
-                       any_hit)
-    return intersect_gather_reference(feats, tminmax, w_c, ids, cnt)
+def tile_cull(feats, tminmax, c_lo, c_hi):
+    """The cull in front of K4: on the card the cull kernel, for CPU
+    tensors :func:`tile_cull_reference`.  Returns each tile's admitted
+    cluster ids, ascending (``(tiles, C)`` int32, of which only each
+    tile's first ``cnt`` entries are written on the card), and ``cnt``
+    (``(tiles,)`` int32)."""
+    if _device_type(feats, "tile_cull") == "cpu":
+        return tile_cull_reference(feats, tminmax, c_lo, c_hi)
+    dev = feats.device
+    tiles, c = _tiles("tile_cull", feats, tminmax), c_lo.shape[0]
+    _check(c_lo, torch.float32, (c, 3), "c_lo", dev)
+    _check(c_hi, torch.float32, (c, 3), "c_hi", dev)
+    ids = torch.empty((tiles, c), dtype=torch.int32, device=dev)
+    cnt = torch.empty((tiles,), dtype=torch.int32, device=dev)
+    if tiles:
+        _run("tile_cull", dev, _ptr(feats), _ptr(tminmax), _ptr(c_lo),
+             _ptr(c_hi), tiles, c, _ptr(ids), _ptr(cnt))
+    return ids, cnt
+
+
+def intersect_gather_keys(feats, tminmax, recs, ids, cnt, any_hit=False,
+                          chunk=None):
+    """K4's launch: each ray's :func:`hit_keys` key (``NO_HIT_KEY`` where
+    it has none), from blocks of ``chunk`` admitted clusters (default
+    :data:`GATHER_CHUNK`).  CUDA tensors only."""
+    dev = feats.device
+    tiles, c = _tiles("intersect_gather", feats, tminmax), recs.shape[0]
+    _check(recs, torch.float32, (c, TRI_TILE, REC_FLOATS), "records", dev)
+    _check(ids, torch.int32, (tiles, c), "ids", dev)
+    _check(cnt, torch.int32, (tiles,), "cnt", dev)
+    if recs.data_ptr() % 16:  # the bulk copies' source
+        raise ValueError("records: must start on a 16-byte boundary")
+    chunk = GATHER_CHUNK if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"intersect_gather: chunk {chunk} < 1")
+    keys = torch.full((feats.shape[0],), NO_HIT_KEY, dtype=torch.int64,
+                      device=dev)
+    if tiles:
+        _run("intersect_gather", dev, _ptr(feats), _ptr(tminmax), _ptr(recs),
+             _ptr(ids), _ptr(cnt), tiles, c, chunk, int(any_hit), _ptr(keys))
+    return keys
+
+
+def intersect_gather(feats, tminmax, recs, ids, cnt, any_hit=False):
+    """K4: on the card the gather kernel, its keys unpacked; for CPU
+    tensors :func:`intersect_gather_reference`.  Returns (best_t,
+    best_tri) per padded ray."""
+    if _device_type(feats, "intersect_gather") == "cpu":
+        return intersect_gather_reference(feats, tminmax, recs, ids, cnt)
+    return unpack_hit_keys(intersect_gather_keys(feats, tminmax, recs, ids,
+                                                 cnt, any_hit))
+
+
+def gather_blocks_per_sm() -> int:
+    """K4's resident blocks per SM (CUDA's occupancy calculator)."""
+    from light_transport_tpu_torch.ops._build import load_intersect_kernel
+
+    n = ctypes.c_int(0)
+    rc = load_intersect_kernel().intersect_gather_blocks_per_sm(
+        ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return n.value
 
 
 def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
                           mesh, tri_weights=None, t_min=1e-5,
                           t_max=float("inf"), any_hit: bool = False,
-                          max_dist=None, clusters=None):
+                          max_dist=None, clusters=None, records=None):
     """Nearest hit (a :class:`Hit`) or, with ``any_hit``, a bool
     occlusion mask against ``max_dist``; the counterpart of JAX's
-    function of the same name.  ``tri_weights`` and ``clusters`` default
-    to :func:`pack_tri_weights` and :func:`cluster_bounds` of ``mesh``."""
+    function of the same name.  ``tri_weights``, ``clusters`` and (for
+    K4) ``records`` default to :func:`pack_tri_weights`,
+    :func:`cluster_bounds` and :func:`cluster_records` of ``mesh``."""
     if tri_weights is None:
         tri_weights = pack_tri_weights(mesh)
     c_lo, c_hi = cluster_bounds(mesh) if clusters is None else clusters
@@ -312,15 +463,18 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     if n_pad != n:
         feats = torch.cat([feats, feats.new_zeros((n_pad - n, 16))])
         tminmax = torch.cat([tminmax, tminmax.new_zeros((n_pad - n, 2))])
-    mask = tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tminmax, c_lo,
-                             c_hi)
-    w_c = cluster_weights(tri_weights)
-    if w_c.shape[0] >= GATHER_MIN_CLUSTERS:
-        ids, cnt = cluster_ids(mask)
-        best_t, best_tri = intersect_gather(feats, tminmax, w_c, ids, cnt,
+    if tri_weights.shape[2] // TRI_TILE >= GATHER_MIN_CLUSTERS:
+        if records is None:
+            records = cluster_records(tri_weights)
+        ids, cnt = tile_cull(feats, tminmax, c_lo, c_hi)
+        best_t, best_tri = intersect_gather(feats, tminmax, records, ids, cnt,
                                             any_hit)
     else:
-        best_t, best_tri = intersect_dense(feats, tminmax, w_c, mask, any_hit)
+        mask = tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tminmax, c_lo,
+                                 c_hi)
+        best_t, best_tri = intersect_dense(feats, tminmax,
+                                           cluster_weights(tri_weights), mask,
+                                           any_hit)
     best_t, best_tri = best_t[:n], best_tri[:n]
     if any_hit:
         return best_tri >= 0

@@ -12,6 +12,11 @@ Tolerances are the JAX package's own TPU test's
 rtol 1e-5, atol 1e-6 where both hit; the triangle equal on >= 99 % of
 those rays.  The weights, cluster bounds, cull mask and sort keys are
 held bitwise.
+
+K4's schedule in plain form is held bitwise to the sequential scan: the
+triangle-major records to the weights, the 64-bit hit keys to the
+(t, index) order, and the chunked split and key merge to
+``intersect_gather_reference``.
 """
 
 import numpy as np
@@ -98,10 +103,22 @@ def test_mesh_takes_the_expected_kernel(case):
 
 
 def test_weights_and_cluster_bounds_bitwise(case):
-    np.testing.assert_array_equal(ik.pack_tri_weights(case["m"]).numpy(),
-                                  case["jw"])
+    w = ik.pack_tri_weights(case["m"])
+    np.testing.assert_array_equal(w.numpy(), case["jw"])
     for a, b in zip(ik.cluster_bounds(case["m"]), case["jcl"]):
         np.testing.assert_array_equal(a.numpy(), b)
+    # K4's triangle-major records hold each triangle's 19 non-zero weight
+    # rows of the cluster blocks, in the kernels' order, and a zero pad
+    w_c = ik.cluster_weights(w).reshape(-1, 16, 4, ik.TRI_TILE)
+    recs = ik.cluster_records(w)
+    assert recs.shape == (w_c.shape[0], ik.TRI_TILE, ik.REC_FLOATS)
+    for i, (r, b) in enumerate(ik.STAGED_ROWS):
+        assert torch.equal(recs[:, :, i], w_c[:, r, b])
+    assert not recs[:, :, len(ik.STAGED_ROWS):].any()
+    # the 45 weights outside the staged rows are all zero
+    staged = torch.zeros((16, 4), dtype=torch.bool)
+    staged[tuple(zip(*ik.STAGED_ROWS))] = True
+    assert not w_c[:, ~staged].any()
 
 
 def test_cull_mask_bitwise(case):
@@ -154,13 +171,105 @@ def test_dense_and_gather_plain_versions_agree(case):
                        torch.from_numpy(case["tmax"])], -1)
     c_lo, c_hi = ik.cluster_bounds(m)
     mask = ik.tile_cluster_mask(o, d, tmm, c_lo, c_hi)
-    w_c = ik.cluster_weights(ik.pack_tri_weights(m))
+    w = ik.pack_tri_weights(m)
+    w_c = ik.cluster_weights(w)
     dt, dtri = ik.intersect_dense(feats, tmm, w_c, mask)
-    gt, gtri = ik.intersect_gather(feats, tmm, w_c, *ik.cluster_ids(mask))
+    ids, cnt = ik.tile_cull(feats, tmm, c_lo, c_hi)
+    assert torch.equal(ids, ik.cluster_ids(mask)[0])
+    gt, gtri = ik.intersect_gather(feats, tmm, ik.cluster_records(w), ids,
+                                   cnt)
     assert torch.equal(dt, gt) and torch.equal(dtri, gtri)
     # culling only skips work: an all-admitting mask gives the same hits
     ot, otri = ik.intersect_dense(feats, tmm, w_c, torch.ones_like(mask))
     assert torch.equal(dt, ot) and torch.equal(dtri, otri)
+
+
+def _gather_operands(m, o, d, tmax):
+    """K4's operands for rays (o, d) against mesh m: features, intervals,
+    records and the plain cull's id lists."""
+    feats = ik.ray_features(torch.from_numpy(o), torch.from_numpy(d))
+    tmm = torch.stack([torch.full((o.shape[0],), 1e-5),
+                       torch.from_numpy(tmax)], -1)
+    ids, cnt = ik.tile_cull(feats, tmm, *ik.cluster_bounds(m))
+    return feats, tmm, ik.cluster_records(ik.pack_tri_weights(m)), ids, cnt
+
+
+def test_split_merge_matches_the_scan(case):
+    """K4's blocks in plain form: each tile's list cut into chunks, each
+    chunk's nearest hit merged by the minimum key, equals the sequential
+    scan bitwise (t, triangle and no-hit lanes) for every chunk size."""
+    ops = _gather_operands(case["m"], case["o"], case["d"], case["tmax"])
+    want_t, want_tri = ik.intersect_gather_reference(*ops)
+    assert (want_tri >= 0).any()
+    for chunk in sorted({1, 3, ik.GATHER_CHUNK}):
+        t, tri = ik.intersect_gather_split_reference(*ops, chunk=chunk)
+        assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+        assert torch.equal(tri, want_tri)
+
+
+def test_split_merge_breaks_exact_ties_like_the_scan():
+    """Two clusters of the same 512 triangles: every hit ties exactly in t
+    across them, and the merge, one cluster a chunk, keeps the first
+    cluster's triangle as the scan does."""
+    tris = sphere_triangles(radius=1.5, n_theta=17, n_phi=16)
+    assert len(tris) == ik.TRI_TILE
+    m = TriangleMesh.build(np.concatenate([tris, tris]),
+                           np.zeros(2 * len(tris), np.int32), device="cpu")
+    o, d, active = rays(seed=13)
+    tmax = np.where(active, np.inf, -np.inf).astype(np.float32)
+    ops = _gather_operands(m, o, d, tmax)
+    assert (ops[4] == 2).all()  # every tile admits both clusters
+    want_t, want_tri = ik.intersect_gather_reference(*ops)
+    t, tri = ik.intersect_gather_split_reference(*ops, chunk=1)
+    hit = want_tri >= 0
+    assert hit.sum() > 100 and (want_tri[hit] < ik.TRI_TILE).all()
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(tri, want_tri)
+    # the second cluster alone finds the same t on its copies
+    t2, tri2 = ik.intersect_gather_reference(*ops[:3], ops[3][:, 1:],
+                                             ops[4] - 1)
+    assert torch.equal(t2[hit], want_t[hit])
+    assert torch.equal(tri2[hit], want_tri[hit] + ik.TRI_TILE)
+
+
+@pytest.mark.parametrize("kind", ["ties", "negative_t", "no_hit"])
+def test_hit_keys_order_like_the_scan(kind):
+    """The int64 keys order as (t, index): the minimum key of a list of
+    hits is the hit a sequential strict-< scan over ascending indices
+    keeps, and unpacking gives its t and index back bitwise."""
+    rng = np.random.default_rng(["ties", "negative_t", "no_hit"].index(kind))
+    n = 4096
+    if kind == "ties":  # few distinct t, so most keys tie on t
+        t = rng.choice(np.float32([1e-5, 0.5, 1.0, 2.0, 3.0e37]), n)
+    elif kind == "negative_t":  # negative, zero and positive t
+        t = np.concatenate([rng.normal(0, 10, n - 4).astype(np.float32),
+                            np.float32([-0.0, 0.0, -1e-30, 1e-30])])
+    else:  # some lanes without a hit
+        t = rng.uniform(0, 5, n).astype(np.float32)
+    tri = rng.permutation(n).astype(np.int32)
+    tt, ttri = torch.from_numpy(t), torch.from_numpy(tri)
+    keys = ik.hit_keys(tt, ttri)
+    back_t, back_tri = ik.unpack_hit_keys(keys)
+    assert torch.equal(back_tri, ttri)
+    assert torch.equal(back_t.view(torch.int32),
+                       torch.where(tt == 0.0, 0.0, tt).view(torch.int32))
+    if kind == "no_hit":
+        keys = torch.where(torch.arange(n) % 3 == 0, ik.NO_HIT_KEY, keys)
+        none_t, none_tri = ik.unpack_hit_keys(keys)
+        assert (none_t[::3] == ik.BIG).all() and (none_tri[::3] == -1).all()
+        assert (keys[1::3] < ik.NO_HIT_KEY).all()
+    # the keys sort as (t, index) does (lexsort's last key is primary)
+    live = keys != ik.NO_HIT_KEY
+    order = np.lexsort((tri[live.numpy()], t[live.numpy()]))
+    assert torch.equal(torch.sort(keys[live]).values, keys[live][order])
+    # in groups of 64 lanes: the scan in ascending index, strict <
+    for g in range(0, n, 64):
+        k, ts, ids = keys[g:g + 64], t[g:g + 64], tri[g:g + 64]
+        best_t, best = ik.BIG, -1
+        for j in np.argsort(ids):
+            if k[j] != ik.NO_HIT_KEY and ts[j] < best_t:
+                best_t, best = ts[j], ids[j]
+        assert ik.unpack_hit_keys(k.min()[None])[1].item() == best
 
 
 def test_ray_sort_key_and_sorted_apply_match_jax():
