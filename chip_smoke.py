@@ -12,14 +12,20 @@ script exits non-zero without the final result line):
      source, all started together) and print ptxas's reports
   3. photon kernel against its plain PyTorch version on the same uniforms:
      bench mode, stride-1 quota mode, and full_scale's configuration at
-     the main path's shapes (2^19 lanes, k=64)
+     the main path's shapes (2^19 lanes, k=64); then the kernel with its
+     in-kernel Philox against the kernel fed philox_uniforms at those
+     shapes, full_scale and bench mode (state and counters bitwise)
   4. physics through the Philox kernel: van de Hulst and the MCML slab
   5. engine parity: simulate_kernel against api.simulate (the superstep
      engine), chi-squared on the coarse-binned (r,z) grid
   6. photon main path: the full_scale preset at its full widths, 1e7
      photons
-  7. bench mode: bench_kernel throughput, and kernel against plain time
-     per block at the main path's shapes
+  7. bench mode: bench_kernel throughput; the full_scale block at the
+     main path's shapes timed with in-kernel Philox, with its uniforms
+     read and through the plain version; the split against a bench-mode
+     block on the same medium and the share of warp-steps with a
+     phase-matched lane; K1's registers, stack and spills (ptxas), its
+     resident blocks per SM and waves; its bound, term by term
   8. the intersector kernels K3 (dense), the cull kernel and K4 (gather)
      against their plain versions, nearest and any hit, on real ray
      batches: camera and bounce-1 rays of the glass preset (K3), camera and
@@ -62,6 +68,7 @@ import functools
 from concurrent.futures import ThreadPoolExecutor
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -125,11 +132,29 @@ GRIDS = ("absorb_rz", "detector_xy", "absorb_xyz", "refl_r", "trans_r")
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12  # dense, on the tensor cores
-# operations per live photon step, counted from csrc/photon_kernel.cu's
-# scatter step: ~130 FP32 (log1pf, cosf, two sqrtf, two divides, the hop,
-# the HG sample and the frame rotation) and ~130 32-bit integer (two
-# Philox4x32-10 evaluations), all counted against the FP32 rate
-PHOTON_OPS_PER_STEP = 260
+# K1's bound per live photon step, counted from csrc/photon_kernel.cu's
+# scatter step (the costlier of its two branches) for every live step.
+# FP32: 73 adds, multiplies, compares, min/max and selects of its own, and
+# the accurate library calls as their usual sequences count, an FMA as
+# two: log1pf ~30, cosf (|phi| < 2 pi) ~28, three divides ~10 and two
+# sqrtf ~8 each -> 177, at the published 67e12/s.  Philox: 5 words, 1.25
+# groups of 10 rounds of two 32x32 products, each a high and a low
+# multiply -> 50 multiplies, at 64 per SM-clock.  SFU: a reciprocal for
+# each divide, a reciprocal square root for each sqrtf -> 5, at 16 per
+# SM-clock.  The term that takes longest bounds the block.
+K1_FP32_PER_STEP = 177
+K1_IMUL_PER_STEP = 50
+K1_SFU_PER_STEP = 5
+# the bound before this count: 260 operations per live step (two Philox
+# groups and ~130 FP32), all at the FP32 rate; kept to read the gap both ways
+K1_OLD_OPS_PER_STEP = 260
+# NVIDIA's H100 SXM: 132 SMs at a 1.98 GHz boost clock; per SM-clock 64
+# 32-bit integer multiplies and 16 SFU results (the CUDA programming guide's
+# throughput table for compute capability 9.0)
+H100_SMS = 132
+H100_CLOCK = 1.98e9
+PEAK_IMUL = 64 * H100_SMS * H100_CLOCK
+PEAK_SFU = 16 * H100_SMS * H100_CLOCK
 # operations per ray-triangle pair of the intersector: 22 multiplies, 16
 # adds, one divide and six compares (csrc/intersect_kernel.cu)
 PAIR_OPS = 45
@@ -239,6 +264,41 @@ def compare_blocks(name, medium, cfg, bench, lanes, k_steps, quota_per_tile,
     return worst, n_div_all
 
 
+def compare_stream(name, medium, cfg, bench, lanes, k_steps, quota_per_tile,
+                   seed=9):
+    """Two blocks of the kernel with its in-kernel Philox against the
+    kernel fed ``philox_uniforms`` of the same seed and block: state and
+    counters bitwise, grids within 2e-4 x max (the atomics' order is
+    free).  Returns the max grid error."""
+    eng = pk.PhotonKernelEngine(medium, cfg, lanes, bench_mode=bench,
+                                k_steps=k_steps, tile_lanes=TILE, device=DEV)
+    sk, su = eng.zero_state(), eng.zero_state()
+    tk, tu = PhotonTallies.zeros(cfg, DEV), PhotonTallies.zeros(cfg, DEV)
+    quota = torch.full((eng.n_tiles,), quota_per_tile, dtype=torch.int32,
+                       device=DEV)
+    worst = 0.0
+    for b in range(2):
+        u = pk.philox_uniforms(eng.plan, seed + b, b, lanes, device=DEV)
+        ck = pk.photon_block(eng.plan, sk, quota, tk, seed + b, b)
+        cu = pk.photon_block(eng.plan, su, quota, tu, seed + b, b, u)
+        torch.cuda.synchronize()
+        for f, a, c in zip(pk.KernelState._fields, sk, su):
+            check(torch.equal(a.view(torch.int32), c.view(torch.int32)),
+                  f"{name} block {b}: {f} differs between Philox and "
+                  f"philox_uniforms")
+        check(torch.equal(ck, cu), f"{name} block {b}: counters differ")
+        if not bench:
+            for g in GRIDS:
+                a, c = getattr(tk, g).double(), getattr(tu, g).double()
+                err = float((a - c).abs().max())
+                scale = float(c.abs().max())
+                check(err <= 2e-4 * max(scale, 1e-30),
+                      f"{name} block {b}: {g} err {err} vs max {scale}")
+                worst = max(worst, err)
+        quota = ck[:, 3].to(torch.int32)
+    return worst
+
+
 def phase3():
     results = {}
     m_ml, _ = multilayer_mismatch(DEV)
@@ -270,6 +330,14 @@ def phase3():
     log(3, f"full_scale config (2 blocks, {MAIN_LANES} lanes, k=64): max "
            f"grid err {results['full_scale'][0]}, diverged lanes "
            f"{results['full_scale'][1]}", t0)
+    # the cached Philox groups give the stream philox_uniforms computes
+    t0 = time.perf_counter()
+    err = compare_stream("stream full_scale", m_fs, fs_cfg, False, MAIN_LANES,
+                         64, TILE + TILE // 2)
+    compare_stream("stream bench", m_b, bench_cfg, True, MAIN_LANES, 64, 0)
+    log(3, f"in-kernel Philox against philox_uniforms fed (2 blocks, "
+           f"{MAIN_LANES} lanes, k=64; full_scale and bench mode): state and "
+           f"counters bitwise, max grid err {err}", t0)
     return max(r[0] for r in results.values())
 
 
@@ -397,41 +465,141 @@ def phase7():
     log(7, f"bench_kernel on full_scale's medium: {t.n_steps / dt:.4e} "
            f"steps/s ({dt:.3f} s)")
 
-    # kernel against plain time per block at the main path's shapes
+    split = k1_split()
+    ms_k, ms_ku = split["ms_philox"], split["ms_fed"]
+    ms_p = cuda_ms(lambda: pk.photon_block_reference(
+        split["plan"], split["state"], split["quota"], split["tallies"],
+        split["u"]), 2)
+    log(7, f"full_scale block ({MAIN_LANES} lanes, k={split['plan'].k_steps})"
+           f": kernel {ms_k:.4f} ms (Philox), {ms_ku:.4f} ms (uniforms read), "
+           f"plain {ms_p:.3f} ms")
+    log(7, f"split: quota block {split['ns_quota']:.4f} ns per executed "
+           f"lane-step ({split['live']:.4f} live), bench mode on full_scale's "
+           f"medium {split['ns_bench']:.4f} ns ({split['ms_bench']:.4f} ms a "
+           f"block): quota / bench {split['ns_quota'] / split['ns_bench']:.4f}"
+           f"; uniforms read / Philox {ms_ku / ms_k:.4f}; warp-steps with a "
+           f"phase-matched lane (from the block's phase draws): (r,z) "
+           f"{split['rz_share']:.4f}, volume {split['vol_share']:.4f}")
+    res = k1_residency(split["plan"])
+    log(7, f"K1 main-path kernel: {res['registers']} registers, "
+           f"{res['stack']} B stack, spill stores {res['spill_st']} B, loads "
+           f"{res['spill_ld']} B (ptxas); {res['blocks_per_sm']} resident "
+           f"{TILE}-lane blocks per SM: {res['waves']:.3f} waves a block of "
+           f"{MAIN_LANES // TILE} tiles on {res['sms']} SMs")
+    bound, old, terms = k1_bound(split)
+    log(7, f"bound: {split['steps']:.0f} live steps: FP32 "
+           f"{terms['fp32']:.4f} ms, Philox multiplies {terms['imul']:.4f} ms,"
+           f" SFU {terms['sfu']:.4f} ms, bytes {terms['bytes']:.4f} ms -> "
+           f"{bound[0]:.4f} ms ({bound[1]}: {terms['by']}); the old count "
+           f"({K1_OLD_OPS_PER_STEP} ops a step at the FP32 rate) {old:.4f} ms")
+    return ms_k, ms_p, bound, old
+
+
+def k1_split(reps=10):
+    """The full_scale block at the main path's shapes (lanes filled by one
+    block first), timed by CUDA events: with in-kernel Philox and with
+    uniforms read; a bench-mode block on full_scale's medium; the live
+    steps of one block; and the share of warp-steps in which some lane's
+    deposit phase matches, from the block's phase draws."""
     m, cfg = full_scale(DEV)
     lanes = MAIN_LANES
     eng = pk.PhotonKernelEngine(m, cfg, lanes, bench_mode=False,
                                 k_steps=pk.K_STEPS, device=DEV)
+    plan, k = eng.plan, eng.k_steps
     tallies = PhotonTallies.zeros(cfg, DEV)
     quota = torch.full((eng.n_tiles,), 1 << 30, dtype=torch.int32, device=DEV)
     state = eng.zero_state()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(3)
-    u = torch.rand((eng.plan.n_draws, lanes), generator=gen, device=DEV)
-    pk.photon_block(eng.plan, state, quota, tallies, 5, 0)  # fill the lanes
-    ms_k = cuda_ms(lambda: pk.photon_block(eng.plan, state, quota, tallies,
-                                           5, 1), 10)
-    ms_ku = cuda_ms(lambda: pk.photon_block(eng.plan, state, quota, tallies,
-                                            5, 1, u), 10)
-    ms_p = cuda_ms(lambda: pk.photon_block_reference(eng.plan, state, quota,
-                                                     tallies, u), 2)
-    ms_k2 = cuda_ms(lambda: pk.photon_block(eng.plan, state, quota, tallies,
-                                            5, 1), 10)
-    log(7, f"full_scale block ({lanes} lanes, k={eng.k_steps}): kernel "
-           f"{ms_k:.3f} / {ms_k2:.3f} ms (Philox), {ms_ku:.3f} ms (uniforms "
-           f"read), plain {ms_p:.3f} ms")
-    # the bound of one such block: its live steps' operations, or its bytes
-    # (state read and written, quota, counters, every tally grid read and
-    # written once)
-    steps = float(pk.photon_block(eng.plan, state, quota, tallies, 5, 1)[
+    u = torch.rand((plan.n_draws, lanes), generator=gen, device=DEV)
+    pk.photon_block(plan, state, quota, tallies, 5, 0)  # fill the lanes
+    ms_k = cuda_ms(lambda: pk.photon_block(plan, state, quota, tallies, 5,
+                                           1), reps)
+    ms_ku = cuda_ms(lambda: pk.photon_block(plan, state, quota, tallies, 5,
+                                            1, u), reps)
+    ms_k2 = cuda_ms(lambda: pk.photon_block(plan, state, quota, tallies, 5,
+                                            1), reps)
+    steps = float(pk.photon_block(plan, state, quota, tallies, 5, 1)[
         :, 2].sum())
-    grids = sum(getattr(tallies, g).numel() * getattr(tallies, g)
-                .element_size() for g in GRIDS)
-    nbytes = 2 * 36 * lanes + 4 * eng.n_tiles + 40 * eng.n_tiles + 2 * grids
-    bound = bound_ms(steps * PHOTON_OPS_PER_STEP, nbytes)
-    log(7, f"bound: {steps:.0f} live steps x {PHOTON_OPS_PER_STEP} ops, "
-           f"{nbytes / 1e6:.1f} MB: {bound[0]:.4f} ms ({bound[1]})")
-    return min(ms_k, ms_k2), ms_p, bound
+    bench = pk.PhotonKernelEngine(m, cfg, lanes, bench_mode=True, k_steps=k,
+                                  device=DEV)
+    b_state = bench.zero_state()
+    b_quota = torch.zeros((bench.n_tiles,), dtype=torch.int32, device=DEV)
+    ms_b = cuda_ms(lambda: pk.photon_block(bench.plan, b_state, b_quota,
+                                           tallies, 7, 1), reps)
+    # phase-matched warp-steps: a warp's k steps hold k / stride windows,
+    # and in each some lane matches on as many steps as the warp has
+    # distinct phases
+    d = pk.philox_uniforms(plan, 5, 1, lanes, device=DEV)
+
+    def share(row, stride):
+        ph = torch.clamp((d[row] * float(stride)).long(), max=stride - 1)
+        hit = torch.zeros((lanes // 32, stride), device=DEV)
+        hit.scatter_(1, ph.view(-1, 32), 1.0)
+        return float(hit.sum(1).mean()) / stride
+
+    executed = float(lanes * k)
+    return {"plan": plan, "state": state, "quota": quota, "tallies": tallies,
+            "u": u, "ms_philox": min(ms_k, ms_k2), "ms_fed": ms_ku,
+            "ms_bench": ms_b, "steps": steps, "live": steps / executed,
+            "ns_quota": min(ms_k, ms_k2) * 1e6 / executed,
+            "ns_bench": ms_b * 1e6 / executed,
+            "rz_share": share(0, plan.stride),
+            "vol_share": share(1, plan.vol_stride)}
+
+
+def ptxas_report(log_text, kernel):
+    """(registers, stack, spill stores, spill loads) that ptxas reported
+    for the first entry function whose name contains ``kernel``."""
+    blocks = log_text.split("Compiling entry function")[1:]
+    for b in blocks:
+        if kernel in b.split("\n", 1)[0]:
+            regs = re.search(r"Used (\d+) registers", b)
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", b)
+            return (int(regs.group(1)), *(int(x) for x in frame.groups()))
+    raise AssertionError(f"ptxas reported no entry function {kernel}")
+
+
+# the main path's K1 instantiation: N_PHASE 2, in-kernel Philox, staged
+K1_MAIN = "photon_block_kernelILi2ELb0ELb1E"
+
+
+def k1_residency(plan):
+    """K1's registers, stack and spills on the main path (ptxas), its
+    resident blocks per SM (the occupancy API) and the waves of a
+    full_scale block."""
+    text = Path(str(_build.build("photon_kernel")) + ".log").read_text()
+    regs, stack, spill_st, spill_ld = ptxas_report(text, K1_MAIN)
+    api = pk.kernel_residency(plan, MAIN_LANES)
+    check(api["registers"] == regs, f"registers: API {api['registers']}, "
+                                    f"ptxas {regs}")
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return {"registers": regs, "stack": stack, "spill_st": spill_st,
+            "spill_ld": spill_ld, "blocks_per_sm": api["blocks_per_sm"],
+            "sms": sms, "waves": MAIN_LANES // TILE
+            / (api["blocks_per_sm"] * sms)}
+
+
+def k1_bound(split):
+    """K1's bound for the timed block: the longest of its FP32, Philox
+    multiply, SFU and bytes terms; and the old count's bound."""
+    plan, steps, t = split["plan"], split["steps"], split["tallies"]
+    grids = sum(getattr(t, g).numel() * getattr(t, g).element_size()
+                for g in GRIDS)
+    n_tiles = MAIN_LANES // TILE
+    # state read and written, quota, counters, every tally grid read and
+    # written once
+    nbytes = 2 * 36 * MAIN_LANES + 4 * n_tiles + 40 * n_tiles + 2 * grids
+    terms = {"fp32": steps * K1_FP32_PER_STEP / PEAK_FP32 * 1e3,
+             "imul": steps * K1_IMUL_PER_STEP / PEAK_IMUL * 1e3,
+             "sfu": steps * K1_SFU_PER_STEP / PEAK_SFU * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(terms, key=terms.get)
+    terms["by"] = by
+    bound = (terms[by], "bytes" if by == "bytes" else "operations")
+    old = bound_ms(steps * K1_OLD_OPS_PER_STEP, nbytes)[0]
+    return bound, old, terms
 
 
 # --------------------------------------------------------------------------
@@ -1474,8 +1642,9 @@ def main():
     phase4()
     phase5()
     launches, _ = phase6()
-    ms, plain_ms, bound = phase7()
+    ms, plain_ms, bound, old_bound = phase7()
     log_gap("photon_block", launches, ms, bound[0])
+    log_gap("photon_block (old bound)", launches, ms, old_bound)
     t0 = time.perf_counter()
     glass = glass_scene(device=DEV)
     soft = soft_shadow_scene()

@@ -1,10 +1,10 @@
 // Fused MCML photon block for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel light_transport_tpu/ops/pallas/photon_kernel.py
-// `_make_kernel` -> `kernel_body` (the fused hop-drop-spin superstep) and
-// its in-kernel histogram flush `_onehot_pair_flush` (the bf16 hi/lo one-hot
-// contractions that fold per-lane records into the (r,z) grid, the detector
-// image and the exit-by-radius table).
+// `_make_kernel` -> `kernel_body` (:204, the fused hop-drop-spin superstep)
+// and its in-kernel histogram flush `_onehot_pair_flush` (:107, the bf16
+// hi/lo one-hot contractions that fold per-lane records into the (r,z)
+// grid, the detector image and the exit-by-radius table).
 //
 // Design.  One thread is one photon lane; its state (position, direction,
 // weight, leftover optical depth, layer) stays in registers for all k_steps
@@ -16,19 +16,49 @@
 // (global lane, block index, draw >> 2), word draw & 3; a caller may hand
 // pre-drawn uniforms instead (`u`, shape (n_draws, lanes)).
 //
-// Tallies.  The TPU kernel staged deposit and exit records and flushed them
-// as one-hot matmuls; here each record is an atomicAdd at the event: float
-// into the (r,z) grid, the volume and the detector, double into the exit
-// tables.  The sums equal the TPU kernel's up to float reassociation.
+// What bounds it.  Per-lane arithmetic and its latency, in lanes that
+// diverge between the scatter and the boundary branch: a live step needs 5
+// uniforms (1.25 Philox groups: 50 32-bit multiplies at half the FP32
+// rate), one log1pf, one cosf, two sqrtf, three divides and the frame
+// rotation; device-memory bytes are negligible.  The bound counts the
+// multiplies as the longest term (chip_smoke.py phase 7).  What the design
+// does about it (each measured on an H100 against the kernel before it,
+// scripts/time_k1_variants.py; PERF.md):
 //
-// What bounds it.  Per-lane arithmetic: each live step costs one log1pf, one
-// cosf, two sqrtf, several divides, two Philox evaluations (20 rounds of
-// 32-bit multiplies) and the frame rotation, in lanes that diverge between
-// the scatter and the boundary branch.  Device-memory bytes are negligible.
-// The second cost is the atomics: every photon starts at r = 0, so the first
-// (r,z) and volume bins are hot spots that serialize in L2.  Warp-aggregated
-// or shared-memory-privatised atomics would address that; this first kernel
-// keeps the plain form.
+// - No division per step.  The step's place in its stride windows is kept
+//   in block-uniform counters; a runtime `%` per window test cost 12 % of
+//   the block.
+// - Each Philox group is evaluated once per lane, in pairs.  A block-uniform
+//   switch on (N_PHASE + s) & 3 makes every word offset a constant (no
+//   select chains over the eight words), and the groups a step does not use
+//   up are kept for the next: 5 groups per 4 steps, 80 a 64-step bench
+//   block, 81 in quota mode (82 with two phase draws, one past the last
+//   draw), where evaluating g and g + 1 on every step took 128.  Every lane
+//   evaluates them, live or dead, so the schedule is static.  The stream is
+//   bitwise the one per-step evaluation draws.  A schedule that evaluates
+//   one group on most steps was slower than none: one Philox is ten
+//   dependent rounds, and two in flight hide each other's latency.  The
+//   loop is not unrolled: four copies of the step ran slower.
+// - The strided deposits are staged.  In quota mode a lane deposits dw *
+//   stride on the one step of each stride window that matches its random
+//   phase; the lane keeps that step's (x, y, z, dw) and at the window's end
+//   every lane with a record bins and adds it together, instead of a
+//   divergent sqrtf, two bins and an atomic on whichever step some lane of
+//   the warp matches (64 % of warp-steps at stride 32).  The volume's own
+//   window (vol_stride) likewise.  The (bin, value) adds are the per-step
+//   ones; only the order of the float atomics changes.  Stride 1 deposits
+//   at the step.  Exits, the detector and the counters stay at the event.
+// - Residency: 60 registers, no spills: 4 resident 256-lane blocks per SM,
+//   3.88 waves for the 2,048 tiles of a 2^19-lane block on 132 SMs.  A
+//   launch bound of 4 blocks compiled the main path to the same code and
+//   slowed the kernel that reads its uniforms; 5 blocks spilled and were
+//   no faster.  The per-layer tables stay in the parameter bank (in
+//   shared memory they were no faster).
+//
+// Tallies.  The TPU kernel staged deposit and exit records and flushed them
+// as one-hot matmuls; here each record is an atomicAdd: float into the
+// (r,z) grid, the volume and the detector, double into the exit tables.
+// The sums equal the TPU kernel's up to float reassociation.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false.  No fast math: log1pf, cosf, sqrtf and
@@ -43,6 +73,7 @@
 #include <stdint.h>
 
 #define MAX_LAYERS 8
+#define MAX_TILE 256  // TILE_LANES: the most threads a block is built for
 
 struct MediumTab {
   int num_layers;
@@ -90,12 +121,10 @@ static __device__ __forceinline__ float u01(uint32_t bits) {
   return (float)(bits >> 8) * 5.9604644775390625e-08f;
 }
 
-// word i (0..7) of the two consecutive Philox groups a, b
-static __device__ __forceinline__ uint32_t pick(uint4 a, uint4 b, int i) {
-  const uint4 v = i < 4 ? a : b;
-  const int j = i & 3;
-  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
-}
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
 
 // truncating float -> bin, clipped to [0, n-1] (clamped in float first)
 static __device__ __forceinline__ int bin_of(float v, int n) {
@@ -146,6 +175,28 @@ struct Lane {
   }
 };
 
+// the strided deposits: dw * stride into the (r,z) bin, dw * vol_stride into
+// the volume bin of (x, y, z)
+static __device__ __forceinline__ void deposit_rz(const BlockParams& p,
+                                                  float* rz, float x, float y,
+                                                  float z, float dw) {
+  const float r = sqrtf(x * x + y * y);
+  const int ir = bin_of(r * p.inv_dr, p.nr);
+  const int iz = bin_of(z * p.inv_dz, p.nz);
+  atomicAdd(rz + ir * p.nz + iz, dw * (float)p.stride);
+}
+
+static __device__ __forceinline__ void deposit_vol(const BlockParams& p,
+                                                   float* vol, float x,
+                                                   float y, float z,
+                                                   float dw) {
+  const int vx = bin_of(x * p.inv_vdx + p.half_vnx, p.vol_nx);
+  const int vy = bin_of(y * p.inv_vdy + p.half_vny, p.vol_ny);
+  const int vz = bin_of(z * p.inv_vdz, p.vol_nz);
+  atomicAdd(vol + ((size_t)vx * p.vol_ny + vy) * p.vol_nz + vz,
+            dw * (float)p.vol_stride);
+}
+
 // quota-ranked respawn of the tile's dead (and eligible) lanes
 static __device__ __forceinline__ void quota_respawn(Lane& L, bool eligible,
                                                      int& quota, float w0,
@@ -157,7 +208,12 @@ static __device__ __forceinline__ void quota_respawn(Lane& L, bool eligible,
   quota -= min(total, max(quota, 0));
 }
 
-__global__ void photon_block_kernel(
+// N_PHASE: 0 in bench mode, else the phase draws (1, or 2 with a separate
+// volume phase).  FED: the uniforms come from `u` instead of Philox.
+// STAGED (quota mode, stride > 1): each lane keeps its phase-matched deposit
+// and bins it at the end of the stride window.
+template <int N_PHASE, bool FED, bool STAGED>
+__global__ void __launch_bounds__(MAX_TILE) photon_block_kernel(
     const MediumTab med, const BlockParams p, float* __restrict__ px,
     float* __restrict__ py, float* __restrict__ pz, float* __restrict__ pdx,
     float* __restrict__ pdy, float* __restrict__ pdz, float* __restrict__ pw,
@@ -191,56 +247,81 @@ __global__ void photon_block_kernel(
   float absorbed = 0.f;
   bool exited = false;
   int phase = 0, phase_v = 0;
+  // pending deposits (STAGED): position and dw of the phase-matched scatter
+  // step of this (r,z) window and of this volume window; dw 0 is none
+  float rz_x = 0.f, rz_y = 0.f, rz_z = 0.f, rz_dw = 0.f;
+  float v_x = 0.f, v_y = 0.f, v_z = 0.f, v_dw = 0.f;
+  // the step's place in its (r,z) window and in its volume window, and the
+  // (r,z) window's index: block-uniform counters, no division per step
+  int rz_pos = 0, vol_pos = 0, window = 0;
 
-  if (!p.bench_mode) {
+  // Philox cache: the groups evaluated ahead of the step that takes them
+  // (see `fetch`); every lane fills it on every step, live or dead
+  uint4 grp = make_uint4(0u, 0u, 0u, 0u), grp1 = grp;
+
+  if (N_PHASE > 0) {
     quota_respawn(L, true, quota, med.w0, warp_tot);
     float u0, u1;
-    if (u != nullptr) {
+    if (FED) {
       u0 = u[gl];
-      u1 = p.sep_vol_phase ? u[lanes + gl] : 0.f;
+      u1 = N_PHASE == 2 ? u[lanes + gl] : 0.f;
     } else {
-      const uint4 a = philox4x32_10(make_uint4(gl, blk, 0u, 0u), k0, k1);
-      u0 = u01(a.x);
-      u1 = u01(a.y);
+      // the phase draws are group 0; superstep 0 takes the rest of it and,
+      // with two phase draws, group 1
+      grp = philox4x32_10(make_uint4(gl, blk, 0u, 0u), k0, k1);
+      if (N_PHASE == 2)
+        grp1 = philox4x32_10(make_uint4(gl, blk, 1u, 0u), k0, k1);
+      u0 = u01(grp.x);
+      u1 = u01(grp.y);
     }
     phase = min((int)(u0 * (float)p.stride), p.stride - 1);
-    phase_v = p.sep_vol_phase
+    phase_v = N_PHASE == 2
                   ? min((int)(u1 * (float)p.vol_stride), p.vol_stride - 1)
                   : phase;
   }
 
-  for (int s = 0; s < p.k_steps; ++s) {
-    if (p.respawn_windows > 0 && s > 0 && s % p.stride == 0 &&
-        (s / p.stride) % p.respawn_windows == 0)
-      quota_respawn(L, !exited, quota, med.w0, warp_tot);  // block-uniform
-    if (p.bench_mode && L.w <= 0.f) L.launch(med.w0);
-    if (!(L.w > 0.f)) {
-      L.tau = 0.f;  // a dead lane's step only clears its leftover depth
-      continue;
-    }
-    ++steps;
-
-    float u_tau, u_hg, u_phi, u_fr, u_rr;
-    const int base = p.n_phase + 5 * s;
-    if (u != nullptr) {
+  // The five uniforms of superstep s: draws base..base+4, base = N_PHASE +
+  // 5 s, words OFF..3 of group g = base >> 2 and words 0..OFF of g + 1, with
+  // OFF = base & 3 = (N_PHASE + s) & 3 a constant here.  Each group is
+  // evaluated once, and in pairs: OFF 0 evaluates g and g + 1, OFF 1
+  // evaluates g + 1 and g + 2 (kept for OFF 2, which evaluates none), OFF 3
+  // evaluates g + 1 (g is kept from the step before).  One Philox is ten
+  // dependent rounds; two evaluated together interleave, and a lone one
+  // every step stalled the lane longer than the second one cost.
+  auto fetch = [&](const int s, auto off, float* un) {
+    constexpr int OFF = decltype(off)::value;
+    const int base = N_PHASE + 5 * s;
+    if (FED) {
       const float* ub = u + (size_t)base * lanes + gl;
-      u_tau = ub[0];
-      u_hg = ub[lanes];
-      u_phi = ub[2 * lanes];
-      u_fr = ub[3 * lanes];
-      u_rr = ub[4 * lanes];
-    } else {
-      const uint32_t g = (uint32_t)base >> 2;
-      const int off = base & 3;
-      const uint4 a = philox4x32_10(make_uint4(gl, blk, g, 0u), k0, k1);
-      const uint4 b = philox4x32_10(make_uint4(gl, blk, g + 1u, 0u), k0, k1);
-      u_tau = u01(pick(a, b, off));
-      u_hg = u01(pick(a, b, off + 1));
-      u_phi = u01(pick(a, b, off + 2));
-      u_fr = u01(pick(a, b, off + 3));
-      u_rr = u01(pick(a, b, off + 4));
+#pragma unroll
+      for (int j = 0; j < 5; ++j) un[j] = ub[j * lanes];
+      return;
     }
+    const uint32_t g = (uint32_t)base >> 2;
+    uint4 a = grp, b = grp1;
+    if (OFF == 0) {
+      a = philox4x32_10(make_uint4(gl, blk, g, 0u), k0, k1);
+      b = philox4x32_10(make_uint4(gl, blk, g + 1u, 0u), k0, k1);
+      grp = b;
+    } else if (OFF == 1) {
+      b = philox4x32_10(make_uint4(gl, blk, g + 1u, 0u), k0, k1);
+      grp1 = philox4x32_10(make_uint4(gl, blk, g + 2u, 0u), k0, k1);
+      grp = b;
+    } else if (OFF == 2) {
+      grp = grp1;
+    } else {
+      b = philox4x32_10(make_uint4(gl, blk, g + 1u, 0u), k0, k1);
+    }
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 5; ++j) un[j] = u01(w[OFF + j]);
+  };
 
+  // one live superstep on uniforms un = (tau, HG, phi, Fresnel, roulette)
+  auto live_step = [&](const float* un) {
+    ++steps;
+    const float u_tau = un[0], u_hg = un[1], u_phi = un[2], u_fr = un[3],
+                u_rr = un[4];
     // ---- hop ---------------------------------------------------------------
     const int l = L.layer;
     const float tau_new = L.tau > 0.f ? L.tau : -log1pf(-u_tau);
@@ -261,20 +342,23 @@ __global__ void photon_block_kernel(
       const float dw = L.w * med.albedo_a[l];
       L.w = L.w - dw;
       absorbed += dw;
-      if (!p.bench_mode) {
-        if (phase == s % p.stride) {
-          const float r = sqrtf(L.x * L.x + L.y * L.y);
-          const int ir = bin_of(r * p.inv_dr, p.nr);
-          const int iz = bin_of(L.z * p.inv_dz, p.nz);
-          atomicAdd(rz + ir * p.nz + iz, dw * (float)p.stride);
+      if (N_PHASE > 0 && STAGED) {
+        if (phase == rz_pos) {
+          rz_x = L.x;
+          rz_y = L.y;
+          rz_z = L.z;
+          rz_dw = dw;
         }
-        if (vol != nullptr && phase_v == s % p.vol_stride) {
-          const int vx = bin_of(L.x * p.inv_vdx + p.half_vnx, p.vol_nx);
-          const int vy = bin_of(L.y * p.inv_vdy + p.half_vny, p.vol_ny);
-          const int vz = bin_of(L.z * p.inv_vdz, p.vol_nz);
-          atomicAdd(vol + ((size_t)vx * p.vol_ny + vy) * p.vol_nz + vz,
-                    dw * (float)p.vol_stride);
+        if (N_PHASE == 2 && phase_v == vol_pos) {
+          v_x = L.x;
+          v_y = L.y;
+          v_z = L.z;
+          v_dw = dw;
         }
+      } else if (N_PHASE > 0) {
+        if (phase == rz_pos) deposit_rz(p, rz, L.x, L.y, L.z, dw);
+        if (vol != nullptr && phase_v == vol_pos)
+          deposit_vol(p, vol, L.x, L.y, L.z, dw);
       }
       // ---- spin (Henyey-Greenstein) -------------------------------------------
       const float g_l = med.g[l];
@@ -329,7 +413,7 @@ __global__ void photon_block_kernel(
         L.uy = L.uy * eta;
         L.uz = (L.uz > 0.f ? 1.f : (L.uz < 0.f ? -1.f : 0.f)) * cos_tr;
         if (next < 0 || next >= med.num_layers) {
-          if (!p.bench_mode) {
+          if (N_PHASE > 0) {
             const float r = sqrtf(L.x * L.x + L.y * L.y);
             const int ir = bin_of(r * p.inv_dr, p.nr);
             if (going_down) {
@@ -355,7 +439,50 @@ __global__ void photon_block_kernel(
       if (L.w > 0.f)
         L.z = L.z + (L.uz > 0.f ? 1.f : (L.uz < 0.f ? -1.f : 0.f)) * 1e-6f;
     }
-  }
+  };
+
+  // superstep s: the window's respawn, the live step, the window's deposits
+  auto step = [&](const int s) {
+    if (p.respawn_windows > 0 && s > 0 && rz_pos == 0 &&
+        window % p.respawn_windows == 0)
+      quota_respawn(L, !exited, quota, med.w0, warp_tot);  // block-uniform
+    if (N_PHASE == 0 && L.w <= 0.f) L.launch(med.w0);
+    float un[5];
+    auto fetch_step = [&]() {
+      switch ((N_PHASE + s) & 3) {  // block-uniform
+        case 0: fetch(s, Int<0>{}, un); break;
+        case 1: fetch(s, Int<1>{}, un); break;
+        case 2: fetch(s, Int<2>{}, un); break;
+        default: fetch(s, Int<3>{}, un); break;
+      }
+    };
+    if (!FED) fetch_step();  // every lane keeps the cache filled
+    if (L.w > 0.f) {
+      if (FED) fetch_step();
+      live_step(un);
+    } else {
+      L.tau = 0.f;  // a dead lane's step only clears its leftover depth
+    }
+    // window ends: every lane with a pending deposit adds it, together
+    const bool last = s + 1 == p.k_steps;
+    if (STAGED && (last || rz_pos == p.stride - 1)) {
+      if (rz_dw != 0.f) deposit_rz(p, rz, rz_x, rz_y, rz_z, rz_dw);
+      if (N_PHASE == 1 && vol != nullptr && rz_dw != 0.f)
+        deposit_vol(p, vol, rz_x, rz_y, rz_z, rz_dw);  // the same phase
+      rz_dw = 0.f;
+    }
+    if (STAGED && N_PHASE == 2 && (last || vol_pos == p.vol_stride - 1)) {
+      if (v_dw != 0.f) deposit_vol(p, vol, v_x, v_y, v_z, v_dw);
+      v_dw = 0.f;
+    }
+    if (++rz_pos == p.stride) {
+      rz_pos = 0;
+      ++window;
+    }
+    if (++vol_pos == p.vol_stride) vol_pos = 0;
+  };
+
+  for (int s = 0; s < p.k_steps; ++s) step(s);
 
   px[gl] = L.x;
   py[gl] = L.y;
@@ -405,6 +532,34 @@ __global__ void photon_block_kernel(
   }
 }
 
+using PhotonKernel = void (*)(MediumTab, BlockParams, float*, float*, float*,
+                             float*, float*, float*, float*, float*, int*,
+                             const int*, const float*, float*, float*, float*,
+                             double*, double*, double*);
+
+template <int N_PHASE, bool FED>
+static PhotonKernel quota_kernel(bool staged) {
+  return staged ? photon_block_kernel<N_PHASE, FED, true>
+                : photon_block_kernel<N_PHASE, FED, false>;
+}
+
+// the instantiation for a block: bench mode has no deposits to stage, and
+// stride 1 deposits at every scatter step
+static PhotonKernel kernel_for(const BlockParams& p, bool fed) {
+  const bool staged = p.stride > 1;
+  switch (p.n_phase) {
+    case 0:
+      return fed ? photon_block_kernel<0, true, false>
+                 : photon_block_kernel<0, false, false>;
+    case 1:
+      return fed ? quota_kernel<1, true>(staged)
+                 : quota_kernel<1, false>(staged);
+    default:
+      return fed ? quota_kernel<2, true>(staged)
+                 : quota_kernel<2, false>(staged);
+  }
+}
+
 extern "C" int photon_block_launch(
     const MediumTab* med, const BlockParams* p, float* px, float* py,
     float* pz, float* pdx, float* pdy, float* pdz, float* pw, float* ptau,
@@ -412,10 +567,24 @@ extern "C" int photon_block_launch(
     float* det, double* refl, double* trans, double* counters,
     void* stream) {
   const dim3 grid(p->lanes / p->tile_lanes), block(p->tile_lanes);
-  photon_block_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  kernel_for(*p, u != nullptr)<<<grid, block, 0,
+                                         (cudaStream_t)stream>>>(
       *med, *p, px, py, pz, pdx, pdy, pdz, pw, ptau, player, quota, u, rz,
       vol, det, refl, trans, counters);
   return (int)cudaGetLastError();
+}
+
+// the residency of the kernel a Philox block of `p` launches: out =
+// {resident blocks per SM of tile_lanes threads, registers per thread}
+extern "C" int photon_block_residency(const BlockParams* p, int* out) {
+  const PhotonKernel fn = kernel_for(*p, false);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                      p->tile_lanes, 0);
+  out[1] = a.numRegs;
+  return (int)err;
 }
 
 extern "C" const char* photon_kernel_error_string(int err) {

@@ -71,6 +71,8 @@ def load_photon_kernel() -> ctypes.CDLL:
         vp = ctypes.c_void_p
         lib.photon_block_launch.argtypes = [vp] * 20
         lib.photon_block_launch.restype = ctypes.c_int
+        lib.photon_block_residency.argtypes = [vp, vp]
+        lib.photon_block_residency.restype = ctypes.c_int
         lib.photon_kernel_error_string.argtypes = [ctypes.c_int]
         lib.photon_kernel_error_string.restype = ctypes.c_char_p
         _loaded["photon_kernel"] = lib

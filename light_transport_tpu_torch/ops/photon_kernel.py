@@ -15,9 +15,10 @@ the photon state held in registers (``csrc/photon_kernel.cu``):
 * **Tallies.** A scattering lane whose phase matches ``step % stride``
   adds ``dw * stride`` into the (r, z) grid (``vol_stride`` likewise for
   the volume); an exiting lane adds its weight into the exit-by-radius
-  table and, at the top surface, the detector image.  On the card these
-  are atomic adds at the event; the plain version uses
-  ``index_put_(accumulate=True)``.
+  table and, at the top surface, the detector image.  On the card the
+  strided deposits are kept per lane and added at the end of their
+  window (the same adds), the exits at the event, all by atomic adds; the
+  plain version uses ``index_put_(accumulate=True)``.
 * **Counters.** Each block returns ``(n_tiles, 5)`` float64 per-tile
   ``launched, specular, steps, quota, absorbed``, folded by the engine
   into exact int64 / float64 tallies.
@@ -27,7 +28,8 @@ the phase draws in quota mode, then superstep ``s`` takes draws
 ``n_phase + 5 s + j`` for j = tau, HG, phi, Fresnel, roulette.  The
 kernel makes them with an in-kernel Philox4x32-10 unless the caller
 hands it ``u``; the plain version always takes ``u`` (drawn from a
-``torch.Generator`` when the caller gives none).
+``torch.Generator`` when the caller gives none).  :func:`philox_uniforms`
+computes the kernel's own stream in plain PyTorch.
 
 :func:`photon_block` runs the plain version for tensors on the CPU and
 the kernel for tensors on a CUDA device; it has no other path.
@@ -49,7 +51,8 @@ from light_transport_tpu_torch.scene.medium import LayeredMedium
 from light_transport_tpu_torch.tally.tallies import PhotonTallies
 
 K_STEPS = 32  # supersteps fused per block
-TILE_LANES = 256  # lanes per tile (one CUDA thread block)
+TILE_LANES = 256  # lanes per tile (one CUDA thread block; the kernel's
+# launch bound, so the most a tile may have on the card)
 MAX_LAYERS = 8  # layers the kernel's by-value medium table holds
 
 # kernel launches made through photon_block (read and reset by callers)
@@ -205,6 +208,63 @@ def block_uniforms(plan: BlockPlan, seed: int, lanes: int,
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
     return torch.rand((plan.n_draws, lanes), generator=gen, device=device)
+
+
+# --------------------------------------------------------------------------
+# the kernel's Philox4x32-10 stream in plain PyTorch
+# --------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32):
+    the product is taken in 16-bit halves, so no partial overflows int64."""
+    ah, al = a >> 16, a & 0xFFFF
+    mh, ml = m >> 16, m & 0xFFFF
+    mid = ah * ml + al * mh  # < 2^33
+    low = al * ml + ((mid & 0xFFFF) << 16)  # < 2^33
+    return ah * mh + (mid >> 16) + (low >> 32), low & _M32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Random123's) of ``counter``, four int64 tensors of
+    32-bit words, under ``key``, two ints; returns the four output words.
+    The round is the kernel's ``philox4x32_10``."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key[0] & _M32, key[1] & _M32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _M32, (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def philox_uniforms(plan: BlockPlan, seed: int, block_index: int, lanes: int,
+                    device=None) -> torch.Tensor:
+    """The ``(n_draws, lanes)`` float32 uniforms the kernel draws inside
+    for one block: draw ``d`` of lane ``l`` is word ``d & 3`` of the group
+    at counter ``(l, block_index, d >> 2, 0)`` under key ``(seed lo, seed
+    hi)``, mapped as ``(word >> 8) * 2^-24``.  Fed to the kernel as ``u``,
+    it gives the kernel's own stream bit for bit."""
+    n_groups = (plan.n_draws + 3) // 4
+    i64 = torch.int64
+    lane = torch.arange(lanes, dtype=i64, device=device)[None, :]
+    group = torch.arange(n_groups, dtype=i64, device=device)[:, None]
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    words = philox4x32_10(
+        (lane.expand(n_groups, lanes),
+         torch.full_like(group, int(block_index) & 0x7FFFFFFF)
+         .expand(n_groups, lanes),
+         group.expand(n_groups, lanes),
+         torch.zeros((n_groups, lanes), dtype=i64, device=device)),
+        (seed & _M32, seed >> 32))
+    # (n_groups, 4, lanes) -> draws in order, 24 high bits of each word
+    u = torch.stack(words, dim=1).reshape(4 * n_groups, lanes)[:plan.n_draws]
+    return (u >> 8).to(torch.float32) * 2.0 ** -24
 
 
 # --------------------------------------------------------------------------
@@ -497,9 +557,9 @@ def _launch_kernel(plan: BlockPlan, state: KernelState, quota: torch.Tensor,
 
     lanes = state.w.shape[0]
     T = plan.tile_lanes
-    if T % 32 or not 32 <= T <= 1024 or lanes % T:
+    if T % 32 or not 32 <= T <= TILE_LANES or lanes % T:
         raise ValueError(f"tile_lanes={T} must be a multiple of 32 in "
-                         f"[32, 1024] dividing lanes={lanes}")
+                         f"[32, {TILE_LANES}] dividing lanes={lanes}")
     n_tiles = lanes // T
     for name, t in zip(KernelState._fields, state):
         _check(t, torch.int32 if name == "layer" else torch.float32,
@@ -545,6 +605,21 @@ def _launch_kernel(plan: BlockPlan, state: KernelState, quota: torch.Tensor,
                            f"({lib.photon_kernel_error_string(rc).decode()})")
     LAUNCHES += 1
     return counters
+
+
+def kernel_residency(plan: BlockPlan, lanes: int) -> dict:
+    """The card's residency for the kernel a Philox block of ``plan``
+    launches: resident tiles per SM and registers per thread."""
+    from light_transport_tpu_torch.ops._build import load_photon_kernel
+
+    lib = load_photon_kernel()
+    _, prm = _structs(plan, lanes, 0, 0)
+    out = (ctypes.c_int * 2)()
+    rc = lib.photon_block_residency(ctypes.byref(prm), out)
+    if rc != 0:
+        raise RuntimeError(f"photon_block_residency failed: CUDA error {rc} "
+                           f"({lib.photon_kernel_error_string(rc).decode()})")
+    return {"blocks_per_sm": out[0], "registers": out[1]}
 
 
 def photon_block(plan: BlockPlan, state: KernelState, quota: torch.Tensor,
