@@ -44,13 +44,20 @@ script exits non-zero without the final result line):
      built from the port's modules, each build step timed; the treelet
      kernels K5 and K5r against the plain roped walk on its camera,
      bounce-1 and shadow rays (every 9th lane inactive), nearest and any
-     hit, through the single-launch, wavefront and queued drivers; the
-     dispatch of that scene without treelet tables (one K5 launch per
-     query) and without a BVH (refused on the card)
+     hit, through the single-launch, wavefront and queued drivers (each
+     timed by the host clock); K5/K5r's block and resident blocks per
+     SM, and per K5r launch of the wavefront its node
+     visits, the share of them read from shared memory and the treelets
+     staged per block; one wavefront query under torch's sync debug mode
+     "error" (no host sync between its passes) and the queued driver's
+     syncs counted; the dispatch of that scene without treelet tables
+     (one K5 launch per query) and without a BVH (refused on the card)
  12. big-mesh render main path: that scene at 256x256, 2 spp, depth 3
-     through K5 (camera rays) and K5r (bounce and shadow rays), its
-     heaviest launches re-run through the plain walk, a subset of its
-     lanes re-traced through the plain walk, and a profile
+     through K5 (camera rays) and K5r (bounce and shadow rays), the host
+     syncs of a render counted, its heaviest launches re-run through the
+     plain walk (K5r from the lane state it started from), a subset of
+     its lanes re-traced through the plain walk, and a profile (K5's and
+     K5r's device time per launch from it)
  13. the feature probes P1-P10 (csrc/probe_kernels.cu): the entry point
      of ops/feature_probes.py runs each in a subprocess of its own (its
      launches counted from 0 there), then each kernel here against its
@@ -63,6 +70,7 @@ line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 from concurrent.futures import ThreadPoolExecutor
@@ -72,6 +80,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1099,7 +1108,7 @@ def sweep_chunk(rec):
                 f"{times}")
 
 
-def profile_render(scene, cfg, wall, phase=10, show=()):
+def profile_render(scene, cfg, wall, phase=10, show=(), host_top=0):
     """Where a render's device time goes: one more render under
     torch.profiler, device time by kernel, and the device's busy share of
     the unprofiled render's wall time.  Kernels whose name holds one of
@@ -1132,6 +1141,16 @@ def profile_render(scene, cfg, wall, phase=10, show=()):
     for w in show:
         check(any(w in key for _, _, key in by_kernel),
               f"the profile holds no {w}")
+    if host_top:  # the host's own time by operator
+        ops = sorted(((e.self_cpu_time_total, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.self_cpu_time_total > 0), reverse=True)
+        total = sum(t for t, _, _ in ops) / 1e3
+        log(phase, f"host time under the profiler {total:.1f} ms by "
+                   f"operator, the top {host_top}: " + "; ".join(
+                       f"{key[:40]} {t / 1e3:.2f} ms x{c}"
+                       for t, c, key in ops[:host_top]))
+    return by_kernel
 
 
 # --------------------------------------------------------------------------
@@ -1211,10 +1230,12 @@ def same_hits(label, got, want):
     return n_hit
 
 
-def phase11(scene, cfg):
-    """K5 and K5r against the plain walk on the big scene's own rays."""
-    tables = scene.treelet
-    t0 = time.perf_counter()
+def big_mesh_batches(scene, cfg):
+    """Phase 11's ray batches of the big scene: 65,536 camera rays, the
+    bounce-1 rays of those paths and shadow rays from the bounce-1 origins
+    to area-uniform light points, every 9th lane inactive.  Returns the
+    camera rays and a list of (label, origins, directions, nearest-hit
+    t_max, any-hit t_max, active lanes)."""
     cam_cfg = dataclasses.replace(cfg, spp=1)  # 65,536 camera rays
     o, d, u = pt._camera_lanes(scene, cam_cfg, generator(11))
     n = o.shape[0]
@@ -1223,12 +1244,13 @@ def phase11(scene, cfg):
     inf = torch.full((n,), float("inf"), device=DEV)
     g = generator(12)
     batches = [("camera rays", o, d, inf,
-                5.0 + 10.0 * torch.rand(n, generator=g, device=DEV))]
+                5.0 + 10.0 * torch.rand(n, generator=g, device=DEV), active)]
     state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0,
                           coherent=True)
     act1 = active & state.alive
     batches.append(("bounce-1 rays", state.origin, state.direction, inf,
-                    0.5 + 14.5 * torch.rand(n, generator=g, device=DEV)))
+                    0.5 + 14.5 * torch.rand(n, generator=g, device=DEV),
+                    act1))
     # shadow rays from the bounce-1 origins to area-uniform light points
     lp, _, _, _ = sample_light_points(
         scene.lights, *torch.rand((3, n), generator=g, device=DEV))
@@ -1236,7 +1258,22 @@ def phase11(scene, cfg):
     dist = torch.linalg.vector_norm(to_light, dim=-1)
     sd = to_light / dist[:, None]
     md = dist * (1.0 - 1e-3)
-    batches.append(("shadow rays", state.origin, sd, md, md))
+    batches.append(("shadow rays", state.origin, sd, md, md, act1))
+    return (o, d, active), batches
+
+
+def phase11(scene, cfg):
+    """K5 and K5r against the plain walk on the big scene's own rays."""
+    tables = scene.treelet
+    t0 = time.perf_counter()
+    (o, d, active), batches = big_mesh_batches(scene, cfg)
+    n = o.shape[0]
+    cfg_k = treelet_residency(tables.T)
+    log(11, f"K5/K5r: {cfg_k['block']} threads a block; K5r's bounded passes "
+            f"stage one treelet of {tables.T * 64} bytes a block, its "
+            f"unbounded pass reads global memory; resident blocks per SM: K5 "
+            f"{cfg_k['k5_blocks']}, K5r bounded {cfg_k['bounded_blocks']}, "
+            f"unbounded {cfg_k['last_blocks']}")
     drivers = {
         "single": tk.intersect_bvh_treelet,
         "wavefront": functools.partial(
@@ -1246,8 +1283,7 @@ def phase11(scene, cfg):
         "queued": tk.intersect_bvh_treelet_queued,
     }
     plain_ms = {}
-    for label, bo, bd, t_near, t_any in batches:
-        act = act1 if label != "camera rays" else active
+    for label, bo, bd, t_near, t_any, act in batches:
         for any_hit, t_hi in ((False, t_near), (True, t_any)):
             t_hi = torch.where(act, t_hi, float("-inf"))
             mode = "any hit" if any_hit else "nearest"
@@ -1279,6 +1315,13 @@ def phase11(scene, cfg):
                     f"({plain_ms[(label, mode)]:.0f} ms) in valid, tri, t "
                     f"and visits (mean {float(vis.float().mean()):.1f}, max "
                     f"{int(vis.max())}) through " + ", ".join(parts))
+            # the wavefront once more, each K5r launch counted
+            with TreeletRecorder("treelet_resume") as rec:
+                got = drivers["wavefront"](bo, bd, tables, t_max=t_hi,
+                                           any_hit=any_hit, with_stats=True)
+            same_hits(f"{label}, {mode}, wavefront (counted)", got, want)
+            log_staging(rec, cfg_k)
+    check_no_sync(batches, tables)
     # a BVH without tables (with_bvh(treelet=False)) walks through one K5
     # launch per query; a big mesh without a BVH raises on the card
     bare = dataclasses.replace(scene, treelet=None)
@@ -1310,18 +1353,126 @@ def phase11(scene, cfg):
     log(11, "K5 and K5r done", t0)
 
 
+def lanes_copy(lanes):
+    return tk.Lanes(*(t.clone() for t in lanes))
+
+
+def cuda_ms_each(setup, fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` calls, each after
+    ``setup()`` (untimed), by CUDA events behind a spin kernel so that the
+    host's launch time falls outside the events; one warm call first."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for r in range(reps + 1):
+        setup()
+        torch.cuda._sleep(200_000)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        total += a.elapsed_time(b) if r else 0.0
+    return total / reps
+
+
+def treelet_residency(T):
+    """Threads a block of the treelet kernels and the resident blocks per
+    SM of K5 and of K5r's bounded and unbounded passes at ``T`` nodes a
+    treelet (CUDA's occupancy calculator)."""
+    out = (ctypes.c_int * 4)()
+    lib = _build.load_treelet_kernel()
+    rc = lib.treelet_blocks_per_sm(T, out)
+    check(rc == 0, f"treelet_blocks_per_sm: CUDA error {rc}")
+    return dict(zip(("block", "k5_blocks", "bounded_blocks", "last_blocks"),
+                    out))
+
+
+def log_staging(rec, cfg_k):
+    """Per K5r launch a recorder saw: node visits, the share of them read
+    from shared memory and the treelets staged per block."""
+    _, _, counts = rec.summary()
+    rows = []
+    for c, args in zip(counts, rec.launched):
+        blocks = -(-args[0].shape[1] // cfg_k["block"])
+        rows.append(f"{c[0]}/{c[3] / max(c[0], 1):.3f}/"
+                    f"{c[4] / blocks:.2f}")
+    log(11, f"  K5r launches (node visits/share from shared memory/"
+            f"treelets staged per block): {' '.join(rows)}")
+
+
+def check_no_sync(batches, tables):
+    """One wavefront query under torch's sync debug mode "error": any read
+    back to the host between its passes raises.  The queued driver, whose
+    contract is a host check every passes_per_sync passes, is counted in
+    "warn" mode beside it."""
+    label, bo, bd, t_near, _, act = batches[1]
+    t_hi = torch.where(act, t_near, float("-inf"))
+    fn = functools.partial(
+        tk.intersect_bvh_treelet_wavefront, bo, bd, tables, t_max=t_hi,
+        loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
+        max_passes=dispatch.WAVEFRONT_MAX_PASSES)
+    fn()
+    torch.cuda.synchronize()
+    before = tk.LAUNCHES["treelet_resume"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"the wavefront driver synced the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = tk.LAUNCHES["treelet_resume"] - before
+    torch.cuda.synchronize()
+    queued = count_syncs(lambda: tk.intersect_bvh_treelet_queued(
+        bo, bd, tables, t_max=t_hi))
+    log(11, f"{label}, nearest: the wavefront driver ran {launched} K5r "
+            f"launches under sync debug mode \"error\" with no host sync; "
+            f"the queued driver syncs {queued} times")
+
+
+def count_syncs(fn, where=None):
+    """Host syncs torch reports (sync debug mode "warn") while ``fn()``
+    runs; with a dict ``where``, counted by the file and line that made
+    them as well."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if where is not None:
+        for w in syncs:
+            key = f"{Path(w.filename).name}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return len(syncs)
+
+
 class TreeletRecorder:
     """Wraps a treelet wrapper while installed: CUDA events around each
-    launch, the launch's own node, leaf and triangle counts, and its
-    operands, for holding the kernel against the plain walk on the
-    heaviest launch.  Fails if a call it sees launches no kernel."""
+    launch, the launch's own counts (node visits, leaf visits, triangle
+    tests, node visits from shared memory, treelets staged), and its
+    operands (for K5r a copy of the lane state and gate it started from),
+    for holding the kernel against the plain walk on the heaviest launch.
+    Fails if a call it sees launches no kernel."""
 
     def __init__(self, name):
         self.name = name
+        self.resume = name == "treelet_resume"
         self.events, self.counts, self.launched = [], [], []
 
     def __call__(self, *args):
-        counts = torch.zeros((3,), dtype=torch.int64, device=DEV)
+        counts = torch.zeros((tk.N_COUNTS,), dtype=torch.int64, device=DEV)
+        if self.resume:  # the state the launch starts from
+            feats, tables, perm, lanes, ml, any_hit, (g_in, _) = args
+            self.launched.append((feats, tables, perm, lanes_copy(lanes), ml,
+                                  any_hit, None if g_in is None
+                                  else g_in.clone()))
+        else:
+            self.launched.append(args)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         before = tk.LAUNCHES[self.name]
@@ -1332,7 +1483,6 @@ class TreeletRecorder:
               f"{self.name}: the call launched no kernel")
         self.events.append((a, b))
         self.counts.append(counts)
-        self.launched.append(args)
         return out
 
     def __enter__(self):
@@ -1349,52 +1499,86 @@ class TreeletRecorder:
         counts = [c.tolist() for c in self.counts]
         return len(ms), sum(ms) / max(len(ms), 1), counts
 
+    def _run(self, args, plain=False, counts=None):
+        """One launch (or its plain version) on ``args``; K5r on a copy of
+        the lane state it started from.  Returns (cursor or None, best_t,
+        best_tri, visits, lanes left unfinished or None)."""
+        if not self.resume:
+            fn = TREELET_KERNELS[self.name] if plain else functools.partial(
+                self.wrapped, counts=counts)
+            return (None, *fn(*args), None)
+        feats, tables, perm, lanes, ml, any_hit, g_in = args
+        out = torch.zeros((1,), dtype=torch.int32, device=DEV)
+        fn = TREELET_KERNELS[self.name] if plain else functools.partial(
+            self.wrapped, counts=counts)
+        got = fn(feats, tables, perm, lanes_copy(lanes), ml, any_hit,
+                 (g_in, out))
+        return (*got, out)
+
     def kernel_and_plain(self):
         """The launch with the most node visits, through the kernel and
-        through the plain walk on the same operands, bitwise.  Returns the
-        kernel's ms (mean of 5 after a warm launch), the plain walk's ms
-        (one call), the bound, the launch's counts and the largest |t|
-        difference where both hit (0 when bitwise)."""
+        through the plain walk on the same operands, bitwise (K5r: in
+        cursor, best_t, best_tri, visits and the lanes it leaves
+        unfinished).  Returns the kernel's ms (mean of 5 after a warm
+        launch, each from the same state), the plain walk's ms (one call),
+        the bound, the launch's counts and the largest |t| difference where
+        both hit (0 when bitwise)."""
         _, _, counts = self.summary()
         k = max(range(len(counts)), key=lambda i: counts[i][0])
         args = self.launched[k]
-        c = torch.zeros((3,), dtype=torch.int64, device=DEV)
-        got = self.wrapped(*args, counts=c)
+        c = torch.zeros((tk.N_COUNTS,), dtype=torch.int64, device=DEV)
+        got = self._run(args, counts=c)
         want = []
-        ms_p = time_once(lambda: want.append(
-            TREELET_KERNELS[self.name](*args)))
+        ms_p = time_once(lambda: want.append(self._run(args, plain=True)))
         want = want[0]
         torch.cuda.synchronize()
         check(c.tolist() == counts[k],
               f"{self.name}: re-run counts {c.tolist()} vs {counts[k]}")
-        for name, a, b in zip(("cursor", "best_t", "best_tri", "visits")[
-                -len(got):], got, want):
-            check(torch.equal(a, b), f"{self.name}, heaviest launch: {name}"
-                                     f" differs in {int((a != b).sum())} "
-                                     "rays")
-        check(int(want[-1].sum()) == counts[k][0],
+        for name, a, b in zip(("cursor", "best_t", "best_tri", "visits",
+                               "unfinished lanes"), got, want):
+            if a is not None and not torch.equal(a, b):
+                check(False, f"{self.name}, heaviest launch: {name} differs "
+                             f"in {int((a != b).sum())} rays")
+        # the launch's own visits: K5r adds them to what the lanes had
+        before = args[3].visits if self.resume else 0
+        check(int((want[3] - before).sum()) == counts[k][0],
               f"{self.name}: node visits {counts[k][0]} vs the plain walk's "
-                  f"{int(want[-1].sum())}")
-        bt_k, bi_k = got[-3], got[-2]
-        both = (bi_k >= 0) & (want[-2] >= 0)
-        err = float((bt_k[both] - want[-3][both]).abs().max()) \
+                  f"{int((want[3] - before).sum())}")
+        bt_k, bi_k = got[1], got[2]
+        both = (bi_k >= 0) & (want[2] >= 0)
+        err = float((bt_k[both] - want[1][both]).abs().max()) \
             if int(both.sum()) else 0.0
-        ms = cuda_ms(lambda: self.wrapped(*args), 5)
-        nodes, leaves, tris = counts[k]
+        ms = cuda_ms_each(lambda: None, lambda: self._run(args), 5) \
+            if not self.resume else self.resume_ms(args, 5)
+        nodes, leaves, tris, smem, staged = counts[k]
         rays = args[0].shape[1]
         bound = self.bound(counts[k], rays)
-        mode = "any hit" if args[-1] else "nearest"
+        mode = "any hit" if args[5 if self.resume else 2] else "nearest"
         log(12, f"{self.name}, heaviest launch of the render ({mode}, "
-                f"{rays} rays, {nodes} node visits, {leaves} "
-                f"leaf visits, {tris} triangle tests): bitwise equal to the "
-                f"plain walk; kernel {ms:.3f} ms, plain {ms_p:.1f} ms, bound "
+                f"{rays} rays, {nodes} node visits ({smem} from shared "
+                f"memory), {leaves} leaf visits, {tris} triangle tests, "
+                f"{staged} treelets staged): bitwise equal to the plain "
+                f"walk; kernel {ms:.4f} ms, plain {ms_p:.1f} ms, bound "
                 f"{bound[0]:.4f} ms ({bound[1]})")
         return ms, ms_p, bound, counts[k], err
+
+    def resume_ms(self, args, reps):
+        """K5r's device time on ``args``, each launch from the same lane
+        state (restored outside the timed span)."""
+        feats, tables, perm, lanes, ml, any_hit, g_in = args
+        work = lanes_copy(lanes)
+        out = torch.zeros((1,), dtype=torch.int32, device=DEV)
+
+        def setup():
+            for dst, src in zip(work, lanes):
+                dst.copy_(src)
+        return cuda_ms_each(setup, lambda: self.wrapped(
+            feats, tables, perm, work, ml, any_hit, (g_in, out)), reps)
 
     def bound(self, counts, rays):
         """The bound of one launch from its node visits and triangle tests
         and its rays."""
-        nodes, _, tris = counts
+        nodes, _, tris = counts[:3]
         return bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
                         nodes * NODE_BYTES + tris * TRI_BYTES
                         + rays * RAY_BYTES[self.name])
@@ -1430,6 +1614,8 @@ def phase12(scene, cfg):
     img2 = lt.render(scene, cfg, seed=0)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
+    sync_at = {}
+    syncs = count_syncs(lambda: lt.render(scene, cfg, seed=0), sync_at)
     t0 = time.perf_counter()
     with TreeletRecorder("treelet_walk") as k5, \
             TreeletRecorder("treelet_resume") as k5r:
@@ -1448,7 +1634,8 @@ def phase12(scene, cfg):
             f"{cfg.max_depth} ({scene.mesh.num_triangles} triangles, "
             f"{n_lanes} lanes): first render {wall1:.3f} s, second "
             f"{wall2:.3f} s, third {wall3:.3f} s (events around every "
-            f"launch); launches {launches}")
+            f"launch); launches {launches}; host syncs in a render {syncs} "
+            f"({', '.join(f'{k} x{v}' for k, v in sorted(sync_at.items()))})")
     # re-trace every 97th lane through the plain walk
     t0 = time.perf_counter()
     o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
@@ -1466,8 +1653,32 @@ def phase12(scene, cfg):
     check(bool(torch.isfinite(img).all()), "big-mesh image not finite")
     check(mean > 0.0, "big-mesh image is black")
     check(frac >= 0.99, f"plain re-trace: {frac} of lanes agree")
-    profile_render(scene, cfg, wall2, phase=12)
-    return launches, (k5, k5r), (wall1, wall2)
+    by_kernel = profile_render(scene, cfg, wall2, phase=12, host_top=8)
+    prof_ms = {}
+    for name, cat in (("treelet_walk", "K5"), ("treelet_resume", "K5r")):
+        rows = [(t, c) for t, c, key in by_kernel
+                if kernel_category(key) == cat]
+        t, c = sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+        prof_ms[name] = t / max(c, 1)
+        log(12, f"{name} under the profiler: {c} launches, "
+                f"{prof_ms[name]:.4f} ms per launch ({t:.3f} ms in all)")
+    return launches, (k5, k5r), prof_ms
+
+
+def kernel_category(key):
+    """A profiler kernel name's part of a treelet query: K5, K5r, sort,
+    gather (index ops), reduce, or other."""
+    if "treelet_walk<" in key:
+        resume = key.split("treelet_walk<")[1].split(",")[1].strip()
+        return "K5r" if resume.startswith("true") else "K5"
+    low = key.lower()
+    if "radixsort" in low or "sort" in low:
+        return "sort"
+    if "index" in low or "gather" in low:
+        return "gather"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
 
 
 # --------------------------------------------------------------------------
@@ -1694,7 +1905,7 @@ def main():
     check(tab.node is scene.bvh.node_rec and tab.leaf is scene.bvh.leaf_rec,
           "the treelet tables copied the BVH's records")
     phase11(scene, cfg)
-    k5_launches, recs, _ = phase12(scene, cfg)
+    k5_launches, recs, prof_ms = phase12(scene, cfg)
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(
@@ -1703,6 +1914,8 @@ def main():
             k5_launches[rec.name], err, ms, plain_ms, bound))
         log_gap(rec.name, k5_launches[rec.name], rec.summary()[1],
                 rec.mean_bound())
+        log_gap(f"{rec.name} (profiler)", k5_launches[rec.name],
+                prof_ms[rec.name], rec.mean_bound())
     entries += phase13()
     print(json.dumps({"kernels": entries}))
     print(card)

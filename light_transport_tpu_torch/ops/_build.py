@@ -100,18 +100,27 @@ def load_intersect_kernel() -> ctypes.CDLL:
     return lib
 
 
+def bind_treelet_kernel(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the treelet library's C functions on ``lib``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.treelet_walk_launch.argtypes = [vp, i, vp, vp] + [i] * 5 + [vp] * 5
+    lib.treelet_walk_launch.restype = ctypes.c_int
+    lib.treelet_resume_launch.argtypes = ([vp, i, vp, vp, vp] + [i] * 6
+                                          + [vp] * 8)
+    lib.treelet_resume_launch.restype = ctypes.c_int
+    lib.treelet_blocks_per_sm.argtypes = [i, vp]
+    lib.treelet_blocks_per_sm.restype = ctypes.c_int
+    lib.treelet_kernel_error_string.argtypes = [ctypes.c_int]
+    lib.treelet_kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_treelet_kernel() -> ctypes.CDLL:
     """The treelet-walk library (K5 and K5r), built on first use and bound
     once."""
     lib = _loaded.get("treelet_kernel")
     if lib is None:
-        lib = ctypes.CDLL(str(build("treelet_kernel")))
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.treelet_walk_launch.argtypes = ([vp, i, vp, vp] + [i] * 7
-                                            + [vp] * 9)
-        lib.treelet_walk_launch.restype = ctypes.c_int
-        lib.treelet_kernel_error_string.argtypes = [ctypes.c_int]
-        lib.treelet_kernel_error_string.restype = ctypes.c_char_p
+        lib = bind_treelet_kernel(ctypes.CDLL(str(build("treelet_kernel"))))
         _loaded["treelet_kernel"] = lib
     return lib
 

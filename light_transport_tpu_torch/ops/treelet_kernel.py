@@ -5,34 +5,41 @@ The counterpart of ``light_transport_tpu.ops.pallas.treelet_kernel``.  The
 flat roped BVH (``accel.bvh``) is cut into treelets, contiguous
 depth-first ranges of ``T`` nodes.  A ray's cursor only moves forward in
 depth-first order, so it passes through each treelet at most once, in
-ascending order; the wavefront driver re-sorts lanes by cursor between
-bounded launches so that neighbouring lanes walk the same treelet.
+ascending order; the wavefront driver sorts the lanes by cursor between
+bounded launches so that the lanes of a block walk the same treelets.
 
 * **Tables.** :class:`TreeletTables` is the kernels' operand: the BVH's
   own float32 node and leaf records (the same tensors, not copied) and the
   treelet size ``T``.  The TPU kernel padded the records to whole treelets
   and split every value into three bf16 chunks so that its one-hot matmul
-  could gather them exactly; Hopper gathers per lane, a lane stops at
-  cursor >= M and ``T`` only numbers the treelets, so neither the chunks
-  nor the padding are needed.  :func:`build_treelet_tables` keeps JAX's
-  limits and errors (node count and ``first + k`` below 2^24,
-  ``max_leaf`` at most 4), so both packages accept the same scenes.
-* **Kernels** (``csrc/treelet_kernel.cu``, one template): K5
-  (``treelet_walk``) walks every lane from the root in one launch; K5r
-  (``treelet_resume``) resumes every lane from its cursor, ``best_t`` and
-  ``best_tri`` and, with ``max_loads > 0``, stops a lane when it would
-  enter treelet number ``max_loads + 1`` of the launch.  One thread per
-  ray.  The plain version of both is ``accel.bvh.roped_walk``; they do the
-  same arithmetic in the same order, so they agree bitwise.
+  could gather them exactly; on the card a treelet is ``T`` contiguous
+  64-byte rows of the node records, copied as they are into shared memory
+  (the last one short), so neither the chunks nor the padding are needed.
+  :func:`build_treelet_tables` keeps JAX's limits and errors (node count
+  and ``first + k`` below 2^24, ``max_leaf`` at most 4), so both packages
+  accept the same scenes.
+* **Kernels** (``csrc/treelet_kernel.cu``, one template; one thread per
+  ray): K5 (``treelet_walk``) walks every lane from the root in one
+  launch; K5r (``treelet_resume``) resumes the lanes from their cursor,
+  ``best_t`` and ``best_tri`` and, with ``max_loads > 0``, stops a lane
+  when it would enter treelet number ``max_loads + 1`` of the launch.
+  K5r's thread ``i`` walks lane ``perm[i]`` and updates the :class:`Lanes`
+  state in place; in a bounded pass a block stages the treelet of its
+  lowest live cursor in shared memory by TMA; a launch can be gated on a
+  device word.  The plain
+  version of both is ``accel.bvh.roped_walk`` (K5r's through ``perm``);
+  they do the same arithmetic in the same order, so they agree bitwise.
 * **Drivers.** :func:`intersect_bvh_treelet` (one K5 launch),
   :func:`intersect_bvh_treelet_wavefront` (``max_passes`` sorted K5r passes
-  of ``loads_per_pass`` treelets, then one unbounded K5r pass) and
-  :func:`intersect_bvh_treelet_queued` (sorted passes with a host check
-  every ``passes_per_sync``).  A schedule changes no result: each lane's
-  walk depends only on its ray and the BVH, so every driver equals the
-  roped walk bitwise, ``visits`` (node visits per ray) included.  JAX's
-  ``loads`` statistic counts treelet residencies of a TPU ray tile, which
-  moves in lockstep; on the card lanes move alone, so it has no
+  of ``loads_per_pass`` treelets, then one unbounded K5r pass, each gated
+  on the pass before, with no host read) and
+  :func:`intersect_bvh_treelet_queued` (gated passes with a host check
+  every ``passes_per_sync``).  A pass sorts only a permutation of the
+  lanes; their state stays in place.  A schedule changes no result: each
+  lane's walk depends only on its ray and the BVH, so every driver equals
+  the roped walk bitwise, ``visits`` (node visits per ray) included.
+  JAX's ``loads`` statistic counts treelet residencies of a TPU ray tile,
+  which moves in lockstep; on the card lanes move alone, so it has no
   counterpart here.
 
 ``treelet_walk`` and ``treelet_resume`` launch their kernel for CUDA
@@ -55,7 +62,6 @@ DEFAULT_T = 512  # nodes per treelet
 DEFAULT_R = 256  # rays per padding tile
 MAX_LEAF = 4  # the largest leaf the tables (and JAX's bf16 slabs) hold
 _INT_LIMIT = 1 << 24  # JAX's 8-bit-digit int split holds values below this
-_DONE = torch.iinfo(torch.int32).max  # sort key of a finished lane
 
 # kernel launches made through treelet_walk / treelet_resume (read and
 # reset by callers)
@@ -108,19 +114,28 @@ def build_treelet_tables(bvh, T: int = DEFAULT_T) -> TreeletTables:
     return TreeletTables.of(bvh, T)
 
 
+def _set_row(row: torch.Tensor, value):
+    """``row[:] = value``, a float or a tensor, without a host copy (a
+    float fills on the device)."""
+    if isinstance(value, torch.Tensor):
+        row.copy_(value.to(row.dtype).expand(row.shape[0]))
+    else:
+        row.fill_(float(value))
+
+
 def _make_feats(origins, directions, t_min, t_max, R):
     """(16, n_pad) per-ray feature rows ``[o, d, 1/d, t_min, t_max, 0 x
     5]``, padded to a multiple of ``R`` with dead lanes (empty ray
     interval); JAX's layout and inverse-direction clamp."""
     n = origins.shape[0]
     n_pad = -(-n // R) * R
-    kw = dict(dtype=torch.float32, device=origins.device)
-    feats = torch.zeros((16, n_pad), **kw)
+    feats = torch.zeros((16, n_pad), dtype=torch.float32,
+                        device=origins.device)
     feats[0:3, :n] = origins.T
     feats[3:6, :n] = directions.T
     feats[6:9, :n] = bvh_mod.inverse_directions(directions).T
-    feats[9, :n] = torch.as_tensor(t_min, **kw).expand(n)
-    feats[10, :n] = torch.as_tensor(t_max, **kw).expand(n)
+    _set_row(feats[9, :n], t_min)
+    _set_row(feats[10, :n], t_max)
     if n_pad != n:
         # pad lanes: direction (0, 0, 1) with its clamped inverse (1e20,
         # 1e20, 1), and t_max = -inf, so the lane dies at the root
@@ -131,33 +146,73 @@ def _make_feats(origins, directions, t_min, t_max, R):
     return feats, n_pad
 
 
+class Lanes(NamedTuple):
+    """Per-lane walk state, in the lanes' own order: K5r reads and writes
+    it in place at ``perm[i]``."""
+
+    cursor: torch.Tensor  # int32: the next node, >= M once finished
+    best_t: torch.Tensor  # float32
+    best_tri: torch.Tensor  # int32, -1: no hit yet
+    visits: torch.Tensor  # int32: node visits so far
+
+    @staticmethod
+    def start(feats) -> "Lanes":
+        """Every lane of ``feats`` at the root, with no hit."""
+        n = feats.shape[1]
+        kw = dict(dtype=torch.int32, device=feats.device)
+        return Lanes(torch.zeros((n,), **kw), feats[10].clone(),
+                     torch.full((n,), -1, **kw), torch.zeros((n,), **kw))
+
+
 # --------------------------------------------------------------------------
 # plain versions
 # --------------------------------------------------------------------------
 
-def treelet_resume_reference(feats, tables: TreeletTables, cursor, best_t,
-                             best_tri, max_loads: int, any_hit=False):
-    """Plain version of K5r: ``(cursor, best_t, best_tri, visits)``."""
-    return bvh_mod.roped_walk(
+def treelet_resume_reference(feats, tables: TreeletTables, perm,
+                             lanes: Lanes, max_loads: int, any_hit=False,
+                             gate=(None, None)) -> Lanes:
+    """Plain version of K5r: the lanes ``perm`` names that are unfinished
+    (cursor < M) resume their walk, bounded to ``max_loads`` treelets (0:
+    no bound), and ``lanes`` is updated in place (visits added to).  With
+    ``gate = (gate_in, gate_out)``: nothing happens when ``gate_in`` holds
+    0, and the lanes left unfinished are added to ``gate_out``."""
+    gate_in, gate_out = gate
+    if gate_in is not None and int(gate_in[0]) == 0:
+        return lanes
+    idx = perm[lanes.cursor[perm] < tables.num_nodes]
+    f = feats[:, idx]
+    cursor, best_t, best_tri, visits = bvh_mod.roped_walk(
         tables.node, tables.leaf, tables.num_nodes, tables.max_leaf,
-        feats[0:3].T, feats[3:6].T, feats[6:9].T, feats[9], cursor, best_t,
-        best_tri, any_hit=any_hit, T=tables.T, max_loads=max_loads)
+        f[0:3].T, f[3:6].T, f[6:9].T, f[9], lanes.cursor[idx],
+        lanes.best_t[idx], lanes.best_tri[idx], any_hit=any_hit, T=tables.T,
+        max_loads=max_loads)
+    lanes.cursor[idx] = cursor
+    lanes.best_t[idx] = best_t
+    lanes.best_tri[idx] = best_tri
+    lanes.visits[idx] += visits
+    if gate_out is not None:
+        gate_out += (cursor < tables.num_nodes).sum().to(gate_out.dtype)
+    return lanes
 
 
 def treelet_walk_reference(feats, tables: TreeletTables, any_hit=False):
     """Plain version of K5: ``(best_t, best_tri, visits)`` of the walk
     from the root."""
-    n = feats.shape[1]
-    cursor = torch.zeros((n,), dtype=torch.int32, device=feats.device)
-    best_tri = torch.full((n,), -1, dtype=torch.int32, device=feats.device)
-    _, best_t, best_tri, visits = treelet_resume_reference(
-        feats, tables, cursor, feats[10].clone(), best_tri, 0, any_hit)
+    lanes = Lanes.start(feats)
+    _, best_t, best_tri, visits = bvh_mod.roped_walk(
+        tables.node, tables.leaf, tables.num_nodes, tables.max_leaf,
+        feats[0:3].T, feats[3:6].T, feats[6:9].T, feats[9], lanes.cursor,
+        lanes.best_t, lanes.best_tri, any_hit=any_hit, T=tables.T)
     return best_t, best_tri, visits
 
 
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
+
+N_COUNTS = 5  # node visits, leaf visits, triangle tests, node visits from
+# shared memory, treelets staged
+
 
 def _check(t: torch.Tensor, dtype, shape, name: str, device):
     if t.device != device:
@@ -170,14 +225,9 @@ def _check(t: torch.Tensor, dtype, shape, name: str, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch(name, feats, tables, state, max_loads, any_hit, counts):
-    """Check the operands and launch ``name``'s kernel.  ``state`` is
-    (cursor, best_t, best_tri) for K5r, None for K5; ``counts`` an int64
-    (3,) tensor that the kernel adds its node visits, leaf visits and
-    triangle tests to, or None.  Returns (cursor, best_t, best_tri,
-    visits), the cursor None for K5."""
-    from light_transport_tpu_torch.ops._build import load_treelet_kernel
-
+def _operands(feats, tables, counts):
+    """Check what both kernels read; returns the counters (zeros if
+    ``counts`` is None)."""
     dev = feats.device
     n = feats.shape[1]
     m = tables.num_nodes
@@ -188,39 +238,76 @@ def _launch(name, feats, tables, state, max_loads, any_hit, counts):
     if not 1 <= tables.max_leaf <= MAX_LEAF:
         raise ValueError(f"max_leaf {tables.max_leaf} outside 1..{MAX_LEAF}")
     if tables.node.data_ptr() % 16:
-        raise ValueError("node table: the kernel reads float4, so it must "
-                         "start on a 16-byte boundary")
-    if state is not None:
-        _check(state[0], torch.int32, (n,), "cursor", dev)
-        _check(state[1], torch.float32, (n,), "best_t", dev)
-        _check(state[2], torch.int32, (n,), "best_tri", dev)
+        raise ValueError("node table: the kernels read float4 and copy "
+                         "treelets by TMA, so it must start on a 16-byte "
+                         "boundary")
     if counts is None:
-        counts = torch.zeros((3,), dtype=torch.int64, device=dev)
-    _check(counts, torch.int64, (3,), "counts", dev)
-    cursor = torch.empty((n,), dtype=torch.int32, device=dev)
-    best_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    best_tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    visits = torch.empty((n,), dtype=torch.int32, device=dev)
+        counts = torch.zeros((N_COUNTS,), dtype=torch.int64, device=dev)
+    _check(counts, torch.int64, (N_COUNTS,), "counts", dev)
+    return counts
+
+
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}_launch failed: CUDA error {rc} "
+            f"({lib.treelet_kernel_error_string(rc).decode()})")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_walk(feats, tables, any_hit, counts):
+    from light_transport_tpu_torch.ops._build import load_treelet_kernel
+
+    counts = _operands(feats, tables, counts)
+    n = feats.shape[1]
+    kw = dict(device=feats.device)
+    best_t = torch.empty((n,), dtype=torch.float32, **kw)
+    best_tri = torch.empty((n,), dtype=torch.int32, **kw)
+    visits = torch.empty((n,), dtype=torch.int32, **kw)
     if n:
         lib = load_treelet_kernel()
-        vp = ctypes.c_void_p
-        ins = (state if state is not None else (None, None, None))
         rc = lib.treelet_walk_launch(
-            vp(feats.data_ptr()), n, vp(tables.node.data_ptr()),
-            vp(tables.leaf.data_ptr()), tables.leaf.shape[1],
-            tables.max_leaf, tables.num_nodes, tables.T, max_loads,
-            int(any_hit), int(state is not None),
-            *(vp(None if x is None else x.data_ptr()) for x in ins),
-            vp(cursor.data_ptr()), vp(best_t.data_ptr()),
-            vp(best_tri.data_ptr()), vp(visits.data_ptr()),
-            vp(counts.data_ptr()),
-            vp(torch.cuda.current_stream(dev).cuda_stream))
-        if rc != 0:
-            raise RuntimeError(
-                f"{name}_launch failed: CUDA error {rc} "
-                f"({lib.treelet_kernel_error_string(rc).decode()})")
-        LAUNCHES[name] += 1
-    return (cursor if state is not None else None), best_t, best_tri, visits
+            _ptr(feats), n, _ptr(tables.node), _ptr(tables.leaf),
+            tables.leaf.shape[1], tables.max_leaf, tables.num_nodes,
+            tables.T, int(any_hit), _ptr(best_t), _ptr(best_tri),
+            _ptr(visits), _ptr(counts), _stream(feats.device))
+        _raise_on(lib, rc, "treelet_walk")
+        LAUNCHES["treelet_walk"] += 1
+    return best_t, best_tri, visits
+
+
+def _launch_resume(feats, tables, perm, lanes, max_loads, any_hit, gate,
+                   counts):
+    from light_transport_tpu_torch.ops._build import load_treelet_kernel
+
+    counts = _operands(feats, tables, counts)
+    dev = feats.device
+    n = feats.shape[1]
+    _check(perm, torch.int64, (n,), "perm", dev)
+    for name, t, dtype in zip(Lanes._fields, lanes,
+                              (torch.int32, torch.float32, torch.int32,
+                               torch.int32)):
+        _check(t, dtype, (n,), name, dev)
+    for name, t in zip(("gate_in", "gate_out"), gate):
+        if t is not None:
+            _check(t, torch.int32, (1,), name, dev)
+    if n:
+        lib = load_treelet_kernel()
+        rc = lib.treelet_resume_launch(
+            _ptr(feats), n, _ptr(perm), _ptr(tables.node), _ptr(tables.leaf),
+            tables.leaf.shape[1], tables.max_leaf, tables.num_nodes,
+            tables.T, max_loads, int(any_hit), *(_ptr(t) for t in lanes),
+            *(_ptr(t) for t in gate), _ptr(counts), _stream(dev))
+        _raise_on(lib, rc, "treelet_resume")
+        LAUNCHES["treelet_resume"] += 1
+    return lanes
 
 
 def _device_type(t: torch.Tensor, name: str) -> str:
@@ -234,24 +321,27 @@ def treelet_walk(feats, tables: TreeletTables, any_hit=False, counts=None):
     :func:`treelet_walk_reference`.  Returns (best_t, best_tri, visits)
     per padded ray (``best_tri`` -1: no hit)."""
     if _device_type(feats, "treelet_walk") == "cuda":
-        return _launch("treelet_walk", feats, tables, None, 0, any_hit,
-                       counts)[1:]
+        return _launch_walk(feats, tables, any_hit, counts)
     return treelet_walk_reference(feats, tables, any_hit)
 
 
-def treelet_resume(feats, tables: TreeletTables, cursor, best_t, best_tri,
-                   max_loads: int, any_hit=False, counts=None):
-    """K5r: every lane resumed from its cursor, bounded to ``max_loads``
-    treelets (0: no bound); for CPU tensors
-    :func:`treelet_resume_reference`.  Returns (cursor, best_t, best_tri,
-    visits of this launch)."""
+def treelet_resume(feats, tables: TreeletTables, perm, lanes: Lanes,
+                   max_loads: int, any_hit=False, gate=(None, None),
+                   counts=None) -> Lanes:
+    """K5r: thread ``i`` resumes lane ``perm[i]`` (int64 ids, a
+    permutation of the lanes) from its cursor, ``best_t`` and ``best_tri``,
+    bounded to ``max_loads`` treelets (0: no bound), and updates ``lanes``
+    in place; ``gate = (gate_in, gate_out)``, int32 (1,) tensors or None:
+    the launch does nothing when ``gate_in`` holds 0 and adds the lanes it
+    leaves unfinished to ``gate_out``.  For CPU tensors
+    :func:`treelet_resume_reference`.  Returns ``lanes``."""
     if max_loads < 0:
         raise ValueError(f"max_loads {max_loads} < 0")
     if _device_type(feats, "treelet_resume") == "cuda":
-        return _launch("treelet_resume", feats, tables,
-                       (cursor, best_t, best_tri), max_loads, any_hit, counts)
-    return treelet_resume_reference(feats, tables, cursor, best_t, best_tri,
-                                    max_loads, any_hit)
+        return _launch_resume(feats, tables, perm, lanes, max_loads, any_hit,
+                              gate, counts)
+    return treelet_resume_reference(feats, tables, perm, lanes, max_loads,
+                                    any_hit, gate)
 
 
 # --------------------------------------------------------------------------
@@ -289,49 +379,22 @@ def occluded_bvh_treelet(origins, directions, tables: TreeletTables,
                                  ray_tile=ray_tile)
 
 
-class _Wave(NamedTuple):
-    """Wavefront state, lanes in their current (sorted) order."""
-
-    feats: torch.Tensor  # (16, n_pad)
-    best_t: torch.Tensor
-    cursor: torch.Tensor
-    best_tri: torch.Tensor
-    orig: torch.Tensor  # each lane's index in the input order
-    visits: torch.Tensor
+def _sorted_lanes(lanes: Lanes, first: bool):
+    """The pass's permutation: the lanes by cursor, finished lanes (cursor
+    >= M) last, ties in lane order; before the first pass every cursor is
+    0 and the order is the identity."""
+    if first:
+        return torch.arange(lanes.cursor.shape[0], device=lanes.cursor.device)
+    return torch.argsort(lanes.cursor, stable=True)
 
 
-def _wave_init(feats) -> _Wave:
-    n_pad = feats.shape[1]
-    kw = dict(dtype=torch.int32, device=feats.device)
-    return _Wave(feats, feats[10].clone(), torch.zeros((n_pad,), **kw),
-                 torch.full((n_pad,), -1, **kw),
-                 torch.arange(n_pad, device=feats.device),
-                 torch.zeros((n_pad,), **kw))
-
-
-def _wave_pass(w: _Wave, tables: TreeletTables, max_loads: int,
-               any_hit: bool) -> _Wave:
-    """One pass: sort the lanes by cursor (finished lanes last, ties in
-    order), then one K5r launch bounded to ``max_loads`` treelets."""
-    key = torch.where(w.cursor < tables.num_nodes, w.cursor, _DONE)
-    perm = torch.argsort(key, stable=True)
-    feats = w.feats[:, perm].contiguous()
-    cursor, best_t, best_tri, visits = treelet_resume(
-        feats, tables, w.cursor[perm], w.best_t[perm], w.best_tri[perm],
-        max_loads, any_hit)
-    return _Wave(feats, best_t, cursor, best_tri, w.orig[perm],
-                 w.visits[perm] + visits)
-
-
-def _wave_live(w: _Wave, tables: TreeletTables) -> bool:
-    return bool((w.cursor < tables.num_nodes).any())
-
-
-def _wave_result(w: _Wave, n, any_hit, with_stats, passes):
-    inv = torch.empty_like(w.orig)
-    inv[w.orig] = torch.arange(w.orig.shape[0], device=w.orig.device)
-    return _result(w.best_t[inv], w.best_tri[inv], w.visits[inv], n,
-                   any_hit, with_stats, passes)
+def _passes_run(gates, n_lanes: int, bounded: int) -> int:
+    """The passes that found a live lane, of ``bounded`` bounded ones whose
+    gate words are ``gates``, plus the unbounded last (one host read)."""
+    if not bounded:
+        return 1
+    live_before = [n_lanes > 0] + (gates[:bounded - 1] > 0).tolist()
+    return 1 + sum(live_before)
 
 
 def intersect_bvh_treelet_wavefront(
@@ -339,21 +402,28 @@ def intersect_bvh_treelet_wavefront(
         t_max=float("inf"), any_hit: bool = False,
         ray_tile: int = DEFAULT_R, with_stats: bool = False,
         loads_per_pass: int = 1, max_passes: int = 12):
-    """Up to ``max_passes`` sorted passes of ``loads_per_pass`` treelets
-    (while any lane is unfinished), then one unbounded pass that walks the
-    stragglers to the end, so ``max_passes`` changes the time, never the
-    result.  Bitwise equal to the roped walk and the other drivers."""
+    """``max_passes`` sorted K5r passes of ``loads_per_pass`` treelets, then
+    one unbounded pass that walks the stragglers to the end, so
+    ``max_passes`` changes the time, never the result.  Each pass sorts a
+    permutation of the lanes by cursor and is gated on the device by the
+    unfinished-lane count of the pass before: once every lane has finished
+    the remaining launches return at once, and nothing is read back to the
+    host.  Bitwise equal to the roped walk and the other drivers."""
     n = origins.shape[0]
-    feats, _ = _make_feats(origins, directions, t_min, t_max, ray_tile)
-    w = _wave_init(feats)
-    passes = 0
-    for _ in range(max_passes):
-        if not _wave_live(w, tables):
-            break
-        w = _wave_pass(w, tables, loads_per_pass, any_hit)
-        passes += 1
-    w = _wave_pass(w, tables, 0, any_hit)
-    return _wave_result(w, n, any_hit, with_stats, passes + 1)
+    feats, n_pad = _make_feats(origins, directions, t_min, t_max, ray_tile)
+    lanes = Lanes.start(feats)
+    gates = torch.zeros((max_passes + 1,), dtype=torch.int32,
+                        device=feats.device)
+    gate_in = None
+    for p in range(max_passes + 1):
+        bounded = p < max_passes
+        treelet_resume(feats, tables, _sorted_lanes(lanes, p == 0), lanes,
+                       loads_per_pass if bounded else 0, any_hit,
+                       (gate_in, gates[p:p + 1]))
+        gate_in = gates[p:p + 1]
+    passes = _passes_run(gates, n_pad, max_passes) if with_stats else None
+    return _result(lanes.best_t, lanes.best_tri, lanes.visits, n, any_hit,
+                   with_stats, passes)
 
 
 def intersect_bvh_treelet_queued(
@@ -362,22 +432,32 @@ def intersect_bvh_treelet_queued(
         ray_tile: int = DEFAULT_R, with_stats: bool = False,
         loads_per_pass: int = 4, passes_per_sync: int = 8,
         max_sync_rounds: int = 4096):
-    """Sorted passes of ``loads_per_pass`` treelets, ``passes_per_sync``
-    of them between host checks, until every lane has finished.  Same
-    contract as :func:`intersect_bvh_treelet`."""
+    """Sorted, device-gated passes of ``loads_per_pass`` treelets,
+    ``passes_per_sync`` of them between host checks of the last pass's
+    unfinished-lane count, until every lane has finished.  Same contract
+    as :func:`intersect_bvh_treelet`."""
     if loads_per_pass < 1:
         raise ValueError(f"loads_per_pass {loads_per_pass} < 1")
+    if passes_per_sync < 1:
+        raise ValueError(f"passes_per_sync {passes_per_sync} < 1")
     n = origins.shape[0]
     feats, _ = _make_feats(origins, directions, t_min, t_max, ray_tile)
-    w = _wave_init(feats)
+    lanes = Lanes.start(feats)
+    gate_in = None
     passes = 0
     for _ in range(max_sync_rounds):
-        for _ in range(passes_per_sync):
-            w = _wave_pass(w, tables, loads_per_pass, any_hit)
+        gates = torch.zeros((passes_per_sync,), dtype=torch.int32,
+                            device=feats.device)
+        for p in range(passes_per_sync):
+            treelet_resume(feats, tables,
+                           _sorted_lanes(lanes, gate_in is None), lanes,
+                           loads_per_pass, any_hit, (gate_in, gates[p:p + 1]))
+            gate_in = gates[p:p + 1]
         passes += passes_per_sync
-        if not _wave_live(w, tables):
+        if int(gates[-1]) == 0:
             break
     else:
         raise RuntimeError(f"treelet wavefront did not converge in "
                            f"{max_sync_rounds * passes_per_sync} passes")
-    return _wave_result(w, n, any_hit, with_stats, passes)
+    return _result(lanes.best_t, lanes.best_tri, lanes.visits, n, any_hit,
+                   with_stats, passes)

@@ -163,16 +163,18 @@ def test_resume_stops_at_the_treelet_bound():
     c = case(2000)
     tab = tk.build_treelet_tables(c.pb, T=c.T)
     feats, n_pad = tk._make_feats(c.o, c.d, tk.T_EPS, c.tmax, 128)
-    zero = torch.zeros((n_pad,), dtype=torch.int32)
-    minus = torch.full((n_pad,), -1, dtype=torch.int32)
-    cur, bt, bi, v1 = tk.treelet_resume(feats, tab, zero, feats[10].clone(),
-                                        minus, 1)
+    perm = torch.arange(n_pad)
+    lanes = tk.treelet_resume(feats, tab, perm, tk.Lanes.start(feats), 1)
+    cur = lanes.cursor.clone()
+    v1 = lanes.visits.clone()
     open_ = cur < tab.num_nodes
     assert open_.any() and (cur[open_] // tab.T > 0).all()
-    _, bt2, bi2, v2 = tk.treelet_resume(feats, tab, cur, bt, bi, 0)
+    lanes = tk.treelet_resume(feats, tab, perm, lanes, 0)
     want = tk.treelet_walk(feats, tab)
-    assert torch.equal(bt2, want[0]) and torch.equal(bi2, want[1])
-    assert torch.equal(v1 + v2, want[2])
+    assert torch.equal(lanes.best_t, want[0])
+    assert torch.equal(lanes.best_tri, want[1])
+    assert torch.equal(lanes.visits, want[2])
+    assert (lanes.visits >= v1).all() and (lanes.visits > v1)[open_].all()
 
 
 def small_scene(t=400, seed=21):
