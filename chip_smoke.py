@@ -28,12 +28,17 @@ script exits non-zero without the final result line):
      resident blocks per SM and waves; its bound, term by term
   8. the intersector kernels K3 (dense), the cull kernel and K4 (gather)
      against their plain versions, nearest and any hit, on real ray
-     batches: camera and bounce-1 rays of the glass preset (K3), camera and
-     incoherent interior rays of the soft-shadow scene (cull and K4, each
-     launch held bitwise), inactive lanes in all
-  9. the glass preset at its preset size (100x100, 4 spp, depth 3)
-     rendered through K3 and through the plain intersector from the same
-     uniforms
+     batches, every launch held bitwise: camera and bounce-1 rays of the
+     glass preset and camera and interior rays of the 15-cluster
+     soft-shadow layout (7,572 triangles; K3), camera and interior rays of
+     the soft-shadow scene (the cull and K4), inactive lanes in all
+  9. the glass preset at its preset size (100x100, 4 spp, depth 3): a
+     fresh scene's first and second render (host clock) and the device's
+     busy share under the profiler, then a render through K3 (each launch
+     timed and held bitwise) against the plain intersector from the same
+     uniforms; K3's query split (each part under the profiler and by CUDA
+     events, the launches a query) on the glass and 15-cluster batches;
+     K3's pieces per block swept on the heaviest launches
  10. render main path: the soft-shadow scene (123,204 triangles, 241
      clusters) at 400x400, 10 spp, depth 3 through the cull kernel and K4,
      their heaviest launches held bitwise against the plain versions, K4's
@@ -62,6 +67,7 @@ script exits non-zero without the final result line):
      of ops/feature_probes.py runs each in a subprocess of its own (its
      launches counted from 0 there), then each kernel here against its
      plain version on the reference probe's inputs, timed by CUDA events
+     (100 calls back to back) and under the profiler (device time a call)
      beside an empty kernel launched the same way, the plain version and,
      where one exists, a single PyTorch call of the same function
 
@@ -636,12 +642,29 @@ def time_once(fn):
     return a.elapsed_time(b)
 
 
-KERNELS = {  # wrapper -> (plain version, index of its pair-count operand)
-    "intersect_dense": (ik.intersect_dense_reference, 3),
-    "intersect_gather": (ik.intersect_gather_reference, 4),
+def dense_pairs(args):
+    """The (tile, cluster) pairs K3's launch on ``args`` admits: its cull
+    is inside the launch, so the plain mask counts them."""
+    feats, tminmax, _, c_lo, c_hi = args[:5]
+    return ik.tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tminmax, c_lo,
+                                c_hi).sum()
+
+
+KERNELS = {  # kernel -> (its wrapper in ik, plain version, admitted pairs)
+    "intersect_dense": ("intersect_dense_keys",
+                        ik.intersect_dense_keys_reference, dense_pairs),
+    "intersect_gather": ("intersect_gather", ik.intersect_gather_reference,
+                         lambda args: args[4].sum()),
 }
 # K4's chunk sizes timed on the heaviest launches (phase 10)
 CHUNK_SWEEP = (1, 2, 4, 8, 16, 32)
+# K3's pieces per block timed on the heaviest launches (phase 9)
+PIECES_SWEEP = (1, 2, 4)
+
+
+def as_hits(out):
+    """A wrapper's result as (best_t, best_tri): K3 returns keys."""
+    return ik.unpack_hit_keys(out) if isinstance(out, torch.Tensor) else out
 
 
 @contextlib.contextmanager
@@ -650,11 +673,12 @@ def plain_intersector():
     versions (the dispatch reaches them through the module's globals).
     Fails if a kernel launched meanwhile: a dispatch that bound the
     wrappers elsewhere would otherwise compare the kernel with itself."""
-    saved = {name: getattr(ik, name) for name in (*KERNELS, "tile_cull")}
+    names = [w for w, _, _ in KERNELS.values()] + ["tile_cull"]
+    saved = {name: getattr(ik, name) for name in names}
     before = dict(ik.LAUNCHES)
     try:
-        for name, (ref, _) in KERNELS.items():
-            setattr(ik, name, lambda *a, _ref=ref: _ref(*a[:-1]))
+        for wrapper, ref, _ in KERNELS.values():
+            setattr(ik, wrapper, lambda *a, _ref=ref: _ref(*a[:-1]))
         ik.tile_cull = ik.tile_cull_reference
         yield
     finally:
@@ -682,7 +706,7 @@ def compare_launch(label, args, got, want, exact=False):
     an any-hit launch, whose t and triangle are whichever hit the kernel
     found first)."""
     any_hit = bool(args[-1])
-    (tk, ck), (tp, cp) = got, want
+    (tk, ck), (tp, cp) = as_hits(got), as_hits(want)
     vk, vp = ck >= 0, cp >= 0
     if not any_hit:
         vk, vp = vk & (tk < ik.BIG), vp & (tp < ik.BIG)
@@ -713,13 +737,13 @@ def compare_launch(label, args, got, want, exact=False):
 class Recorder:
     """Wraps an intersector wrapper while installed: CUDA events around
     each launch, the admitted (tile, cluster) pairs of each, and the
-    operands of each, for holding the kernel against its plain version on
-    the heaviest launches (K4 bitwise).  Fails if a call it sees launches
-    no kernel."""
+    operands of each, for holding the kernel against its plain version
+    (bitwise) on every launch or the heaviest.  Fails if a call it sees
+    launches no kernel."""
 
     def __init__(self, name):
         self.name = name
-        self.exact = name == "intersect_gather"
+        self.wrapper, self.plain, self.count_pairs = KERNELS[name]
         self.events, self.pairs, self.launched = [], [], []
 
     def __call__(self, *args):
@@ -729,17 +753,17 @@ class Recorder:
         out = launch_counted(self.name, self.wrapped, args)
         b.record()
         self.events.append((a, b))
-        self.pairs.append(args[KERNELS[self.name][1]].sum())
+        self.pairs.append(self.count_pairs(args))
         self.launched.append((self.pairs[-1], args))
         return out
 
     def __enter__(self):
-        self.wrapped = getattr(ik, self.name)
-        setattr(ik, self.name, self)
+        self.wrapped = getattr(ik, self.wrapper)
+        setattr(ik, self.wrapper, self)
         return self
 
     def __exit__(self, *exc):
-        setattr(ik, self.name, self.wrapped)
+        setattr(ik, self.wrapper, self.wrapped)
 
     def summary(self):
         torch.cuda.synchronize()
@@ -748,59 +772,66 @@ class Recorder:
         return len(ms), sum(ms) / max(len(ms), 1), pairs
 
     def per_tile(self):
-        """Each launch's admitted clusters per tile: (mean, max)."""
-        cnts = [a[KERNELS[self.name][1]] for _, a in self.launched]
+        """Each K4 launch's admitted clusters per tile: (mean, max)."""
+        cnts = [a[4] for _, a in self.launched]
         return [(round(float(c.float().mean()), 2), int(c.max()))
                 for c in cnts]
 
     def hold_every(self, label):
         """Every recorded launch again through the kernel and through its
-        plain version on the same operands (K4 bitwise)."""
-        plain = KERNELS[self.name][0]
+        plain version on the same operands, bitwise."""
         for k, (pairs, args) in enumerate(self.launched):
             mode = "any-hit" if args[-1] else "nearest"
             compare_launch(f"{label}, {self.name} launch {k} ({mode}, "
                            f"{int(pairs)} pairs)", args,
                            launch_counted(self.name, self.wrapped, args),
-                           plain(*args[:-1]), exact=self.exact)
+                           self.plain(*args[:-1]), exact=True)
+
+    def heaviest(self, any_hit):
+        """The operands of the launch of that mode that admitted the most
+        pairs (None if there was none)."""
+        runs = [pa for pa in self.launched if bool(pa[1][-1]) == any_hit]
+        return max(runs, key=lambda pa: int(pa[0]))[1] if runs else None
 
     def kernel_and_plain(self):
         """The nearest-hit and the any-hit launch that admitted the most
         pairs, each through the kernel and through its plain version on
-        the same operands, held to phase 8's limits.  Returns the kernel's
-        ms (mean of 5 after a warm launch), the plain version's ms (one
-        call), the bound, the admitted pairs and the largest |t|
-        difference of the nearest-hit one."""
-        plain = KERNELS[self.name][0]
+        the same operands, held bitwise.  Returns the kernel's ms (mean of
+        5 after a warm launch), the plain version's ms (one call), the
+        bound, the admitted pairs and the largest |t| difference of the
+        nearest-hit one."""
         held = {}
         for any_hit in (False, True):
-            runs = [pa for pa in self.launched if bool(pa[1][-1]) == any_hit]
-            if not runs:
+            args = self.heaviest(any_hit)
+            if args is None:
                 continue
-            args = max(runs, key=lambda pa: int(pa[0]))[1]
             got = launch_counted(self.name, self.wrapped, args)
             want = []
-            ms_p = time_once(lambda: want.append(plain(*args[:-1])))
+            ms_p = time_once(lambda: want.append(self.plain(*args[:-1])))
             mode = "any-hit" if any_hit else "nearest"
             err = compare_launch(
                 f"{self.name}, heaviest {mode} launch of the run "
-                f"({int(args[KERNELS[self.name][1]].sum())} pairs)", args,
-                got, want[0], exact=self.exact)
+                f"({int(self.count_pairs(args))} pairs)", args, got, want[0],
+                exact=True)
             held[any_hit] = (args, ms_p, err)
         args, ms_p, err = held[False]
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
-        pairs = int(args[KERNELS[self.name][1]].sum())
-        return ms, ms_p, self.bound(args), pairs, err
+        return ms, ms_p, self.bound(args), int(self.count_pairs(args)), err
 
     def bound(self, args):
         """The bound of one launch on ``args``: its admitted pairs'
-        operations or its operands' bytes."""
-        feats, w_c = args[0], args[2]
-        pairs = int(args[KERNELS[self.name][1]].sum())
+        operations (and for K3 its cull's slab tests, every ray against
+        every box) or its operands' bytes: the rays' features and
+        intervals, the records, K3's boxes or K4's id lists, and a key a
+        ray."""
+        feats, recs = args[0], args[2]
+        ops = int(self.count_pairs(args)) * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS
+        if self.name == "intersect_dense":
+            ops += feats.shape[0] * recs.shape[0] * CULL_OPS
         lists = sum(x.numel() * x.element_size() for x in args[3:-1])
         nbytes = (feats.numel() * 4 + args[1].numel() * 4
-                  + w_c.numel() * 4 + lists + feats.shape[0] * 8)
-        return bound_ms(pairs * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS, nbytes)
+                  + recs.numel() * 4 + lists + feats.shape[0] * 8)
+        return bound_ms(ops, nbytes)
 
     def mean_bound(self):
         """The bound averaged over every launch the recorder saw."""
@@ -889,10 +920,12 @@ class CullRecorder:
             len(self.launched), 1)
 
 
-def compare_hits(label, scene, o, d, active, max_dist):
+def compare_hits(label, scene, o, d, active, max_dist, kernel):
     """Nearest and any-hit queries of one ray batch through the kernels and
-    through the plain versions; returns the largest |t| difference where
-    both hit."""
+    through the plain versions, failing unless ``kernel`` (and no other
+    intersector kernel) ran; every launch of the cull and of K3 or K4 is
+    held bitwise against its plain version.  Returns the largest |t|
+    difference where both hit, and the recorders."""
     from light_transport_tpu_torch.ops.dispatch import (
         scene_intersect,
         scene_occluded,
@@ -903,10 +936,10 @@ def compare_hits(label, scene, o, d, active, max_dist):
     with recs[0], recs[1], CullRecorder() as cull:
         hk = scene_intersect(scene, o, d, active=active)
         ok = scene_occluded(scene, o, d, max_dist, active=active)
-        # each launch of the cull and of K4 again, held bitwise
+        # each launch again, held bitwise
         cull.hold_every(label)
-        if recs[1].launched:
-            recs[1].hold_every(label)
+        for r in recs:
+            r.hold_every(label)
     with plain_intersector():
         hp = scene_intersect(scene, o, d, active=active)
         op = scene_occluded(scene, o, d, max_dist, active=active)
@@ -918,7 +951,8 @@ def compare_hits(label, scene, o, d, active, max_dist):
     rel = float((dt / hp.t[both].abs()).max()) if int(both.sum()) else 0.0
     same_tri = float((hk.tri[both] == hp.tri[both]).float().mean()) \
         if int(both.sum()) else 1.0
-    check(any(r.events for r in recs), f"{label}: no kernel launched")
+    check([r.name for r in recs if r.events] == [kernel],
+          f"{label}: expected launches of {kernel} alone")
     pairs = {r.name: r.summary()[2] for r in recs if r.events}
     log(8, f"{label}: {n} rays ({int(active.sum())} active), hit "
            f"{float(hp.valid.float().mean()):.4f}, occluded "
@@ -931,14 +965,16 @@ def compare_hits(label, scene, o, d, active, max_dist):
     check(rel <= 1e-5, f"{label}: t differs by rel {rel}")
     check(same_tri >= 0.999, f"{label}: same triangle on {same_tri}")
     check(not bool(hk.valid[~active].any()), f"{label}: inactive lane hit")
-    return float(dt.max()) if dt.numel() else 0.0
+    return (float(dt.max()) if dt.numel() else 0.0), recs
 
 
-def soft_shadow_scene():
+def soft_shadow_scene(n_theta=176, n_phi=352):
     """examples/soft_shadow.py's scene from the port's modules: a
-    123,200-triangle turquoise sphere on a floor under a 3x3 area light."""
-    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=176,
-                           n_phi=352)
+    123,200-triangle turquoise sphere on a floor under a 3x3 area light.
+    At n_theta=44, n_phi=88 the sphere has 7,568 triangles: 7,572 in all,
+    15 clusters, the top of K3's range."""
+    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=n_theta,
+                           n_phi=n_phi)
     floor = quad_triangles((-8, -0.5, -8), (-8, -0.5, 8), (8, -0.5, 8),
                            (8, -0.5, -8))
     lq = quad_triangles((-1.5, 6, -1.5), (1.5, 6, -1.5), (1.5, 6, 1.5),
@@ -963,55 +999,213 @@ def generator(seed):
     return gen
 
 
-def phase8(glass, soft):
-    """Kernels against plain on real ray batches."""
-    err = {}
+def glass_batches(glass):
+    """The glass preset's camera rays (every 11th lane inactive) and
+    bounce-1 rays, each as (label, o, d, active, any-hit distance)."""
     scene, cfg = glass
-    t0 = time.perf_counter()
     o, d, u = pt._camera_lanes(scene, cfg, generator(1))
     active = torch.ones(o.shape[0], dtype=torch.bool, device=DEV)
     active[::11] = False
-    e1 = compare_hits("glass camera rays (K3)", scene, o, d, active, 20.0)
     state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0)
     md = torch.rand(o.shape[0], generator=generator(2), device=DEV) * 15.0
-    e2 = compare_hits("glass bounce-1 rays (K3)", scene, state.origin,
-                      state.direction, state.alive, md)
-    err["intersect_dense"] = max(e1, e2)
-    log(8, "K3 done", t0)
-    t0 = time.perf_counter()
-    scene = soft
+    return [("glass camera rays", o, d, active, 20.0),
+            ("glass bounce-1 rays", state.origin, state.direction,
+             state.alive, md)]
+
+
+def shadow_batches(scene, label):
+    """16,384 camera rays (128x128, 1 spp) and 16,384 interior rays of a
+    soft-shadow layout, every 9th lane inactive, each as (label, o, d,
+    active, any-hit distance)."""
     n = 16384
     cam_cfg = dataclasses.replace(SOFT_SHADOW_CFG, width=128, height=128,
                                   spp=1)
     o, d, _ = pt._camera_lanes(scene, cam_cfg, generator(3))
     active = torch.ones(n, dtype=torch.bool, device=DEV)
     active[::9] = False
-    e1 = compare_hits("soft-shadow camera rays (K4)", scene, o, d, active,
-                      8.0)
     g = generator(4)
     lo = torch.tensor([-2.0, -0.5, -2.0], device=DEV)
     hi = torch.tensor([2.0, 3.0, 2.0], device=DEV)
-    o = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=DEV)
-    d = torch.nn.functional.normalize(
+    oi = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=DEV)
+    di = torch.nn.functional.normalize(
         torch.randn((n, 3), generator=g, device=DEV), dim=-1)
     md = 0.5 + 7.5 * torch.rand(n, generator=g, device=DEV)
-    e2 = compare_hits("soft-shadow interior rays (K4)", scene, o, d, active,
-                      md)
-    err["intersect_gather"] = max(e1, e2)
+    return [(f"{label} camera rays", o, d, active, 8.0),
+            (f"{label} interior rays", oi, di, active, md)]
+
+
+# --------------------------------------------------------------------------
+# K3's query split and the glass render's walls (phase 9;
+# scripts/time_k3_split.py runs the same against an older tree)
+# --------------------------------------------------------------------------
+
+# the functions of ops/intersect_kernel that a cluster query may call, each
+# timed on its own operands (those a tree does not call are skipped)
+QUERY_PARTS = ("ray_features", "tile_cluster_mask", "cluster_weights",
+               "intersect_dense", "intersect_dense_keys", "unpack_hit_keys")
+SPLIT_REPS = 20
+
+
+def device_profile(fn):
+    """(device ms, kernel launches, {kernel: (ms, launches)}) of one
+    ``fn()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+    return (sum(ms for ms, _ in rows.values()),
+            sum(c for _, c in rows.values()), rows)
+
+
+def capture_queries(ikm, scene, o, d, active, max_dist):
+    """The cluster queries the dispatch makes for one ray batch (nearest,
+    then any hit): ``ikm.intersect_rays_pallas``'s operands after the
+    coherence sort."""
+    calls, fn = [], ikm.intersect_rays_pallas
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    ikm.intersect_rays_pallas = spy
+    try:
+        dispatch.scene_intersect(scene, o, d, active=active)
+        dispatch.scene_occluded(scene, o, d, max_dist, active=active)
+    finally:
+        ikm.intersect_rays_pallas = fn
+    return calls
+
+
+def query_split(ikm, call):
+    """One cluster query: the whole of it, then each QUERY_PARTS function
+    it called, again on the operands it was given, each under
+    torch.profiler (device ms, launches) and by CUDA events (ms a call,
+    mean of SPLIT_REPS back to back); K3's own kernel from the whole
+    query's profile."""
+    a, k = call
+    seen = {}
+    saved = {n: getattr(ikm, n) for n in QUERY_PARTS if hasattr(ikm, n)}
+
+    def spy(name, f):
+        def g(*x, **y):
+            seen.setdefault(name, []).append((x, y))
+            return f(*x, **y)
+        return g
+
+    for n, f in saved.items():
+        setattr(ikm, n, spy(n, f))
+    try:
+        ikm.intersect_rays_pallas(*a, **k)
+    finally:
+        for n, f in saved.items():
+            setattr(ikm, n, f)
+    out = {}
+    runs = [("query", lambda: ikm.intersect_rays_pallas(*a, **k))]
+    runs += [(n, lambda f=saved[n], cs=cs: [f(*x, **y) for x, y in cs])
+             for n, cs in seen.items()]
+    for name, fn in runs:
+        ms, launches, rows = device_profile(fn)
+        out[name] = (round(ms, 4), launches, round(cuda_ms(fn, SPLIT_REPS),
+                                                     4))
+        if name == "query":
+            k3 = [v for key, v in rows.items() if "intersect_dense" in key]
+            out["K3 kernel"] = (round(sum(v[0] for v in k3), 4),
+                                sum(v[1] for v in k3), None)
+    return out
+
+
+def log_split(phase, ikm, scene, batches, tag=""):
+    """query_split of every cluster query the dispatch makes for each
+    batch, one line a query."""
+    for label, o, d, active, md in batches:
+        for call, mode in zip(capture_queries(ikm, scene, o, d, active, md),
+                              ("nearest", "any-hit")):
+            split = query_split(ikm, call)
+            log(phase, f"{tag}K3 query split, {label} ({mode}, "
+                       f"{call[0][0].shape[0]} rays): part: (profiler ms, "
+                       f"launches, events ms a call) "
+                       + json.dumps(split))
+
+
+def glass_walls(ikm, glass, phase, tag=""):
+    """The glass preset rendered twice from a scene not rendered before
+    (host clock to synchronize: the first call builds the scene's
+    tables), its K3 launches, then once under torch.profiler for the
+    device's busy share of the second call's wall.  Returns (first,
+    second) in s and the busy ms."""
+    scene, cfg = glass
+    walls = []
+    for _ in range(2):
+        ikm.LAUNCHES["intersect_dense"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.render_image(scene, cfg, seed=5)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = ikm.LAUNCHES["intersect_dense"]
+    by_kernel = profile_render(scene, cfg, walls[1], phase=phase)
+    busy = sum(t for t, _, _ in by_kernel) / 1e3
+    k3 = [(t, c) for t, c, key in by_kernel if "intersect_dense" in key]
+    log(phase, f"{tag}glass render: first call {walls[0]:.4f} s, second "
+               f"{walls[1]:.4f} s, K3 launches a render {launches}, K3 "
+               f"under the profiler {sum(t for t, _ in k3) / 1e3:.4f} ms in "
+               f"{sum(c for _, c in k3)} launches; device busy {busy:.3f} "
+               f"ms = {busy / (walls[1] * 1e3):.3f} of the second call, "
+               f"{sum(c for _, c, _ in by_kernel)} launches")
+    return walls, busy, k3
+
+
+def phase8(glass, mid, soft):
+    """Kernels against plain on real ray batches; returns K3's recorders
+    of the 15-cluster batches (phase 9 sweeps on their launches)."""
+    err = {}
+    t0 = time.perf_counter()
+    e3, mid_recs = [], []
+    for label, o, d, active, md in glass_batches(glass):
+        e3.append(compare_hits(f"{label} (K3)", glass[0], o, d, active, md,
+                               "intersect_dense")[0])
+    for label, o, d, active, md in shadow_batches(mid, "15-cluster"):
+        e, recs = compare_hits(f"{label} (K3)", mid, o, d, active, md,
+                               "intersect_dense")
+        e3.append(e)
+        mid_recs.append(recs[0])
+    err["intersect_dense"] = max(e3)
+    log(8, "K3 done", t0)
+    t0 = time.perf_counter()
+    err["intersect_gather"] = max(
+        compare_hits(f"{label} (K4)", soft, o, d, active, md,
+                     "intersect_gather")[0]
+        for label, o, d, active, md in shadow_batches(soft, "soft-shadow"))
     log(8, f"K4 done; largest |t| difference per kernel {err}", t0)
+    return mid_recs
 
 
-def phase9(glass):
-    """The glass preset through K3 and through the plain intersector."""
+def phase9(glass, mid, mid_recs):
+    """The glass preset through K3: the walls of a fresh scene's first and
+    second render and its device busy share, one render with every K3
+    launch timed and held bitwise and its image against the plain
+    intersector's, K3's query split, and the pieces-per-block sweep.
+    Returns K3's launches a render, its recorder and its ms a launch
+    under the profiler."""
     scene, cfg = glass
     t0 = time.perf_counter()
+    walls, busy, k3_prof = glass_walls(ik, glass_scene(device=DEV), 9)
+    prof_ms = sum(t for t, _ in k3_prof) / 1e3 / max(
+        sum(c for _, c in k3_prof), 1)
     for name in ik.LAUNCHES:
         ik.LAUNCHES[name] = 0
     with Recorder("intersect_dense") as rec:
         img = pt.render_image(scene, cfg, seed=5)
         torch.cuda.synchronize()
     launches = dict(ik.LAUNCHES)
-    wall = time.perf_counter() - t0
     with plain_intersector():
         img_p = pt.render_image(scene, cfg, seed=5)
     diff = float((img - img_p).abs().mean())
@@ -1019,15 +1213,57 @@ def phase9(glass):
     log(9, f"glass {cfg.width}x{cfg.height}x{cfg.spp} depth {cfg.max_depth}"
            f" ({scene.mesh.num_triangles} triangles): mean |K3 - plain| "
            f"{diff:.3e}, image mean {float(img.mean()):.5f}, K3 launches "
-           f"{launches['intersect_dense']} at {ms:.3f} ms each, admitted "
-           f"pairs per launch {pairs}, K4 launches "
-           f"{launches['intersect_gather']}, render wall {wall:.2f} s", t0)
+           f"{launches['intersect_dense']} at {ms:.4f} ms each by CUDA "
+           f"events ({prof_ms:.4f} under the profiler), admitted pairs per "
+           f"launch {pairs}, K4 launches {launches['intersect_gather']}; "
+           f"K3 at {ik.DENSE_PIECES} piece(s) a block, resident blocks per "
+           f"SM {ik.dense_blocks_per_sm()}", t0)
     check(bool(torch.isfinite(img).all()), "glass image not finite")
     check(float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
           "glass image outside [0, 1]")
     check(diff < 2e-3, f"glass K3 vs plain image diff {diff}")
     check(launches["intersect_dense"] > 0, "the glass render launched no K3")
-    return launches["intersect_dense"], rec
+    rec.hold_every("glass render")
+    t0 = time.perf_counter()
+    log_split(9, ik, scene, glass_batches(glass))
+    log_split(9, ik, mid, shadow_batches(mid, "15-cluster"))
+    log(9, "K3 query split", t0)
+    sweep_pieces("glass render", rec.launched)
+    sweep_pieces("15-cluster batches",
+                 [pa for r in mid_recs for pa in r.launched])
+    return launches["intersect_dense"], rec, prof_ms
+
+
+def sweep_pieces(label, launched):
+    """K3 on the heaviest nearest-hit and any-hit launch of ``launched``
+    at each pieces-per-block of PIECES_SWEEP: the keys held bitwise
+    against DENSE_PIECES's (any hit: the hit mask), then ms a launch under
+    the profiler (mean of 10), resident blocks per SM and ms by CUDA events
+    (mean of 10 back to back)."""
+    for any_hit in (False, True):
+        runs = [pa for pa in launched if bool(pa[1][-1]) == any_hit]
+        pairs, args = max(runs, key=lambda pa: int(pa[0]))
+        want = ik.intersect_dense_keys(*args[:5], any_hit=any_hit)
+        times = {}
+        for pieces in PIECES_SWEEP:
+            def fn():
+                return ik.intersect_dense_keys(*args[:5], any_hit=any_hit,
+                                               pieces=pieces)
+            got = fn()
+            check(torch.equal(got, want) if not any_hit else
+                  torch.equal(got != ik.NO_HIT_KEY, want != ik.NO_HIT_KEY),
+                  f"K3 at {pieces} pieces a block: differs")
+            _, _, rows = device_profile(lambda: [fn() for _ in range(10)])
+            k3 = [v for key, v in rows.items() if "intersect_dense" in key]
+            times[pieces] = (
+                round(sum(v[0] for v in k3) / max(sum(v[1] for v in k3), 1),
+                      4), ik.dense_blocks_per_sm(pieces),
+                round(cuda_ms(fn, 10), 4))
+        mode = "any-hit" if any_hit else "nearest"
+        log(9, f"K3 pieces sweep, {label}, heaviest {mode} launch "
+               f"({int(pairs)} pairs, {args[0].shape[0]} rays): by pieces a "
+               f"block (profiler ms a launch, resident blocks per SM, events "
+               f"ms): {times}")
 
 
 def phase10(scene):
@@ -1691,7 +1927,7 @@ PROBE_DEFS = {  # each probe's def line in scripts/probe_treelet_features.py
     "p_onehot": 213, "p_when_mm": 251, "p_reshape_8x128": 300,
     "p_packed_pair_flush": 322,
 }
-PROBE_REPS = 200
+PROBE_REPS = 100
 
 
 def probe_work(name, args):
@@ -1779,6 +2015,7 @@ def phase13():
             f"each its kernel's one launch, each passing its check", t0)
     t0 = time.perf_counter()
     empty = cuda_ms(lambda: fp.empty_launch(DEV), PROBE_REPS)
+    empty_dev = probe_device_ms(lambda: fp.empty_launch(DEV))
     entries = []
     for r in records:
         name = r["probe"]
@@ -1795,6 +2032,8 @@ def phase13():
         plain_ms = cuda_ms(lambda: plain(*args), 20)
         lib = probe_library(name, args)
         lib_ms = cuda_ms(lib, PROBE_REPS) if lib is not None else None
+        dev_ms = probe_device_ms(lambda: wrapper(*args))
+        lib_dev = probe_device_ms(lib) if lib is not None else None
         ops, peak, nbytes = probe_work(name, args)
         bound = bound_ms(ops, nbytes, peak)
         same = ("bitwise equal to" if bitwise
@@ -1806,13 +2045,23 @@ def phase13():
                 f"overhead); plain {plain_ms:.5f} ms; library "
                 + (f"{lib_ms:.5f} ms" if lib_ms is not None else "none")
                 + f"; bound {bound[0]:.3e} ms ({bound[1]}: {ops} ops, "
-                f"{nbytes} bytes)")
+                f"{nbytes} bytes); device time a call under the profiler "
+                f"over {PROBE_REPS} calls: kernel {dev_ms:.5f} ms, empty "
+                f"kernel {empty_dev:.5f} ms, library "
+                + (f"{lib_dev:.5f} ms" if lib_dev is not None else "none"))
         entries.append(kernel_entry(
             name, "light_transport_tpu_torch/csrc/probe_kernels.cu",
             f"scripts/probe_treelet_features.py:{PROBE_DEFS[name]}",
             r["launches"], err, ms, plain_ms, bound, lib_ms))
     log(13, "probes timed", t0)
     return entries
+
+
+def probe_device_ms(fn):
+    """Device ms a call of ``fn()`` under torch.profiler, over PROBE_REPS
+    calls back to back (every kernel a call launches counted)."""
+    return device_profile(lambda: [fn() for _ in range(PROBE_REPS)])[0] / \
+        PROBE_REPS
 
 
 def log_gap(name, launches, ms, bound):
@@ -1858,11 +2107,13 @@ def main():
     log_gap("photon_block (old bound)", launches, ms, old_bound)
     t0 = time.perf_counter()
     glass = glass_scene(device=DEV)
+    mid = soft_shadow_scene(n_theta=44, n_phi=88)
     soft = soft_shadow_scene()
     log(8, f"scenes built: glass {glass[0].mesh.num_triangles} triangles, "
-           f"soft shadow {soft.mesh.num_triangles}", t0)
-    phase8(glass, soft)
-    k3_launches, k3 = phase9(glass)
+           f"15-cluster layout {mid.mesh.num_triangles}, soft shadow "
+           f"{soft.mesh.num_triangles}", t0)
+    mid_recs = phase8(glass, mid, soft)
+    k3_launches, k3, k3_prof_ms = phase9(glass, mid, mid_recs)
     k4_launches, k4, cull, _ = phase10(soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
@@ -1881,6 +2132,8 @@ def main():
             rec.name, "light_transport_tpu_torch/csrc/intersect_kernel.cu",
             replaces, launched, err, ms, plain_ms, bound))
         log_gap(rec.name, launched, rec.summary()[1], rec.mean_bound())
+    log_gap("intersect_dense (profiler)", k3_launches, k3_prof_ms,
+            k3.mean_bound())
     ms, plain_ms, bound = cull.kernel_and_plain()
     log(10, f"tile_cull on its heaviest query: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
@@ -1891,7 +2144,7 @@ def main():
         k4_launches["tile_cull"], 0.0, ms, plain_ms, bound))
     log_gap("tile_cull", k4_launches["tile_cull"], cull.summary()[1],
             cull.mean_bound())
-    del glass, soft, k3, k4, cull
+    del glass, mid, soft, mid_recs, k3, k4, cull
     scene, cfg, timings = big_mesh_scene()
     tab = scene.treelet
     check(tab is not None, "with_bvh attached no treelet tables")

@@ -4,7 +4,8 @@
 // Replaces the two TPU kernels of light_transport_tpu/ops/pallas/
 // intersect_kernel.py and the XLA cull in front of the second:
 //   * `_kernel` (K3): the dense (ray tile x triangle cluster) grid that
-//     skips the pairs a per-tile cull mask rejects -> intersect_dense_kernel;
+//     skips the pairs a per-tile cull mask rejects -> intersect_dense_kernel,
+//     which runs the cull itself;
 //   * `_gather_kernel` (K4): K3's math over each ray tile's compacted list
 //     of admitted cluster ids -> intersect_gather_kernel;
 //   * `_tile_cluster_mask` and the argsort that compacts it (XLA ops,
@@ -23,17 +24,11 @@
 // tensor cores, TF32 or bf16 (bf16 passes put 9 % of silhouette rays on
 // the wrong triangle on the TPU).
 //
-// K3.  One CUDA block is one 128-ray tile (the TPU's RAY_TILE, so the cull
-// masks agree tile for tile); one thread is one ray, its ten features and
-// running minimum in registers.  For each admitted 512-triangle cluster the
-// block copies the 19 non-zero weight rows (of 64) into 38 KB of shared
-// memory, then every thread walks the 512 triangles, reading the same
-// address at once (a broadcast).
-//
 // K4.  What bounds it is instruction throughput: each ray-triangle test
 // is ~60 FP32 instructions from registers plus its weights from shared
-// memory, and 19 scalar shared loads per test (K3's layout) cap a 132-SM
-// card near 1.7 tests per SM-clock.  So the weights come as
+// memory, and 19 scalar shared loads per test (the (C, 16, 2048) weight
+// layout) cap a 132-SM card near 1.7 tests per SM-clock.  So the weights
+// come as
 // triangle-major records (ops/intersect_kernel.cluster_records, built once
 // per scene): 20 floats a triangle, five 128-bit broadcast loads a test.
 // A block is one (ray tile, chunk of at most `chunk` admitted clusters);
@@ -47,6 +42,27 @@
 // of t) << 32 | triangle index: the lexicographic minimum of (t, index) is
 // exactly the sequential strict-< scan over ascending clusters.  The
 // caller unpacks the keys.
+//
+// K3 (below 16 clusters: 49 to 7,680 triangles).  The TPU kernel ran one
+// grid step per (tile, cluster) behind a mask computed by XLA ops.  Here
+// one launch does the cull and the tests: block (tile, y) takes
+// `pieces` consecutive 128-triangle pieces of one cluster (K4's records),
+// so the glass preset's 313 tiles x 1 cluster make 1,252 blocks of 128
+// tests a thread at one piece a block, where one block a tile made 313
+// blocks of 512 serial tests (~9.5 warps an SM, latency-bound).  Each
+// block first runs its rays' slab test against its cluster's box
+// (tile_cull_kernel's arithmetic) and leaves unless one of them enters
+// (__syncthreads_or): it admits exactly the plain mask's pairs.  Rays with
+// an empty interval (inactive lanes) test nothing, and a block whose rays
+// all have nothing to test leaves.  Thread 0 then copies each piece
+// (10,240 B) into shared memory by one cp.async.bulk on an mbarrier of its
+// own, and every thread tests it by broadcast loads, as K4 does: on an
+// H100 this ran 25-35 % faster than every thread reading the records
+// through L1 (chip_smoke.py phase 9, a build that had both).  The pieces
+// merge by K4's keys, so K3 is bitwise the sequential scan.  Any hit: a
+// thread stops at its first hit, and rays another block has hit test no
+// more.  At one piece a block it holds 42 registers a thread, 10 resident
+// blocks per SM.
 //
 // The cull.  One block per 128-ray tile, one thread per ray: each thread
 // runs its ray's slab test against every cluster box, the boxes read as
@@ -69,16 +85,14 @@ namespace {
 
 constexpr int kRayTile = 128;
 constexpr int kTriTile = 512;
-constexpr int kBlocks = 4;     // det, u, v, t weight blocks
-constexpr int kFeat = 16;      // feature width of the packed weights
-constexpr int kStaged = 19;    // non-zero weight rows staged per cluster
+constexpr int kFeat = 16;      // feature width of a ray
 constexpr float kBig = 3.0e38f;
 constexpr float kDetEps = 1e-12f;
 
-// K4's records and ring
+// K4's records and ring; K3's pieces
 constexpr int kRecFloats = 20;               // 19 weights and a pad
 constexpr int kRecVecs = kRecFloats / 4;     // float4 loads per record
-constexpr int kPieceTris = 128;              // triangles per ring stage
+constexpr int kPieceTris = 128;              // triangles per piece
 constexpr int kPieces = kTriTile / kPieceTris;
 constexpr int kStages = 2;
 constexpr uint32_t kPieceBytes = kPieceTris * kRecFloats * sizeof(float);
@@ -141,115 +155,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
-// K3: the dense kernel
-// ---------------------------------------------------------------------------
-
-// Staged row sr of the shared buffer <- (feature row, weight block):
-// det rows 0-2 of block 0, u rows 0-5 of block 1, v rows 0-5 of block 2,
-// t rows 6-9 of block 3.
-__device__ __forceinline__ void staged_source(int sr, int& row, int& blk) {
-  if (sr < 3) {
-    row = sr;
-    blk = 0;
-  } else if (sr < 9) {
-    row = sr - 3;
-    blk = 1;
-  } else if (sr < 15) {
-    row = sr - 9;
-    blk = 2;
-  } else {
-    row = sr - 15 + 6;
-    blk = 3;
-  }
-}
-
-// w: (C, 16, 4 * 512) f32, w[c][r][b * 512 + k] = weight row r of block b
-// for triangle c * 512 + k.
-__device__ __forceinline__ void stage_cluster(const float* __restrict__ w,
-                                              int cid, float* s) {
-  const float* wc = w + (size_t)cid * kFeat * kBlocks * kTriTile;
-  for (int i = threadIdx.x; i < kStaged * kTriTile; i += blockDim.x) {
-    int row, blk;
-    staged_source(i / kTriTile, row, blk);
-    s[i] = wc[row * kBlocks * kTriTile + blk * kTriTile + i % kTriTile];
-  }
-}
-
-__device__ __forceinline__ void test_cluster(const float* s, const float* f,
-                                             float tmin, float tmax, int base,
-                                             bool any_hit, float& best_t,
-                                             int& best_tri) {
-  const float* sd = s;
-  const float* su = s + 3 * kTriTile;
-  const float* sv = s + 9 * kTriTile;
-  const float* st = s + 15 * kTriTile;
-  for (int k = 0; k < kTriTile; ++k) {
-    const float det = (f[0] * sd[k] + f[1] * sd[kTriTile + k])
-                      + f[2] * sd[2 * kTriTile + k];
-    float un = f[0] * su[k] + f[1] * su[kTriTile + k];
-    un = un + f[2] * su[2 * kTriTile + k];
-    un = un + f[3] * su[3 * kTriTile + k];
-    un = un + f[4] * su[4 * kTriTile + k];
-    un = un + f[5] * su[5 * kTriTile + k];
-    float vn = f[0] * sv[k] + f[1] * sv[kTriTile + k];
-    vn = vn + f[2] * sv[2 * kTriTile + k];
-    vn = vn + f[3] * sv[3 * kTriTile + k];
-    vn = vn + f[4] * sv[4 * kTriTile + k];
-    vn = vn + f[5] * sv[5 * kTriTile + k];
-    float tn = f[6] * st[k] + f[7] * st[kTriTile + k];
-    tn = tn + f[8] * st[2 * kTriTile + k];
-    tn = tn + f[9] * st[3 * kTriTile + k];
-    const bool ok = fabsf(det) > kDetEps;
-    const float inv = ok ? 1.0f / det : 0.0f;
-    const float u = un * inv;
-    const float v = vn * inv;
-    const float t = tn * inv;
-    const bool valid = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                       t > tmin && t < tmax;
-    if (valid && t < best_t) {
-      best_t = t;
-      best_tri = base + k;
-      if (any_hit) return;
-    }
-  }
-}
-
-// `mask` is the (tiles, C) int32 cull mask; every cluster is visited in
-// order, the rejected ones skipped.
-__global__ void __launch_bounds__(kRayTile)
-    intersect_dense_kernel(const float* __restrict__ feats,
-                           const float* __restrict__ tminmax,
-                           const float* __restrict__ w,
-                           const int32_t* __restrict__ mask, int n_clusters,
-                           int any_hit, float* __restrict__ out_t,
-                           int32_t* __restrict__ out_tri) {
-  __shared__ float s[kStaged * kTriTile];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * kRayTile + threadIdx.x;
-  float f[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) f[k] = feats[ray * kFeat + k];
-  const float tmin = tminmax[2 * ray];
-  const float tmax = tminmax[2 * ray + 1];
-  float best_t = kBig;
-  int best_tri = -1;
-  const int32_t* row = mask + (size_t)tile * n_clusters;
-  for (int cid = 0; cid < n_clusters; ++cid) {
-    if (row[cid] == 0) continue;  // uniform across the block
-    // one barrier: the previous cluster's readers are done, and in any-hit
-    // mode the tile leaves once every ray has its hit
-    if (__syncthreads_and(any_hit && best_tri >= 0)) break;
-    stage_cluster(w, cid, s);
-    __syncthreads();
-    if (!(any_hit && best_tri >= 0))
-      test_cluster(s, f, tmin, tmax, cid * kTriTile, any_hit != 0, best_t,
-                   best_tri);
-  }
-  out_t[ray] = best_t;
-  out_tri[ray] = best_tri;
-}
-
-// ---------------------------------------------------------------------------
 // The cull
 // ---------------------------------------------------------------------------
 
@@ -266,6 +171,34 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return d;
 }
 
+// A ray's origin and the reciprocals of its direction, each component of
+// magnitude below 1e-20 replaced by +-1e-20 (tile_cluster_mask's guard).
+__device__ __forceinline__ void slab_ray(const float* fr, float* o,
+                                         float* inv) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float d = fr[i];
+    o[i] = fr[6 + i];
+    inv[i] = 1.0f / (fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d);
+  }
+}
+
+// Does the ray enter the box lo-hi within [tmin, tmax]?  tile_cluster_mask
+// op for op.
+__device__ __forceinline__ bool slab_enters(const float* o, const float* inv,
+                                            float lx, float ly, float lz,
+                                            float hx, float hy, float hz,
+                                            float tmin, float tmax) {
+  const float t1x = (lx - o[0]) * inv[0], t2x = (hx - o[0]) * inv[0];
+  const float t1y = (ly - o[1]) * inv[1], t2y = (hy - o[1]) * inv[1];
+  const float t1z = (lz - o[2]) * inv[2], t2z = (hz - o[2]) * inv[2];
+  const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                           min_nan(t1z, t2z));
+  const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                           max_nan(t1z, t2z));
+  return tn <= tf && tf >= tmin && tn <= tmax;
+}
+
 // c_lo, c_hi: (C, 3) box corners.  ids: (tiles, C), of which each tile's
 // first cnt[tile] entries are written: its admitted ids, ascending.
 __global__ void __launch_bounds__(kRayTile)
@@ -278,14 +211,8 @@ __global__ void __launch_bounds__(kRayTile)
   __shared__ unsigned words[kBoxWords];  // admitted bits of the piece
   const int tile = blockIdx.x;
   const size_t ray = (size_t)tile * kRayTile + threadIdx.x;
-  const float* fr = feats + ray * kFeat;
   float o[3], inv[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float d = fr[i];
-    o[i] = fr[6 + i];
-    inv[i] = 1.0f / (fabsf(d) < 1e-20f ? (d < 0.0f ? -1e-20f : 1e-20f) : d);
-  }
+  slab_ray(feats + ray * kFeat, o, inv);
   const float tmin = tminmax[2 * ray];
   const float tmax = tminmax[2 * ray + 1];
   int32_t* out = ids + (size_t)tile * n_clusters;
@@ -306,14 +233,8 @@ __global__ void __launch_bounds__(kRayTile)
       for (int b = 0; b < jn; ++b) {
         const float4 p = box[2 * (j0 + b)];
         const float4 q = box[2 * (j0 + b) + 1];
-        const float t1x = (p.x - o[0]) * inv[0], t2x = (p.w - o[0]) * inv[0];
-        const float t1y = (p.y - o[1]) * inv[1], t2y = (q.x - o[1]) * inv[1];
-        const float t1z = (p.z - o[2]) * inv[2], t2z = (q.y - o[2]) * inv[2];
-        const float tn = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
-                                 min_nan(t1z, t2z));
-        const float tf = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
-                                 max_nan(t1z, t2z));
-        if (tn <= tf && tf >= tmin && tn <= tmax) bits |= 1u << b;
+        if (slab_enters(o, inv, p.x, p.y, p.z, p.w, q.x, q.y, tmin, tmax))
+          bits |= 1u << b;
       }
       bits = __reduce_or_sync(0xffffffffu, bits);
       if ((threadIdx.x & 31) == 0 && bits) atomicOr(&words[j0 / 32], bits);
@@ -349,8 +270,9 @@ __device__ __forceinline__ long long hit_key(float t, int tri) {
 }
 
 // One record r (five float4s): sd0 sd1 sd2 su0 | su1 su2 su3 su4 |
-// su5 sv0 sv1 sv2 | sv3 sv4 sv5 st0 | st1 st2 st3 pad, test_cluster's
-// operations in test_cluster's order.  Returns valid; t in `t`.
+// su5 sv0 sv1 sv2 | sv3 sv4 sv5 st0 | st1 st2 st3 pad, the plain version's
+// operations (ops/intersect_kernel._cluster_hits) in its order.  Returns
+// valid; t in `t`.
 __device__ __forceinline__ bool test_record(const float4* r, const float* f,
                                             float tmin, float tmax, float& t) {
   const float4 a = r[0], b = r[1], c = r[2], d = r[3], e = r[4];
@@ -465,17 +387,109 @@ __global__ void __launch_bounds__(kRayTile)
   if (best_tri >= 0) atomicMin(keys + ray, hit_key(best_t, best_tri));
 }
 
+// ---------------------------------------------------------------------------
+// K3: the dense kernel
+// ---------------------------------------------------------------------------
+
+// recs: (C, 512, 20) triangle-major records; c_lo, c_hi: (C, 3) boxes.
+// Block (tile, y) takes pieces y * pieces ... y * pieces + pieces - 1 of
+// the C * kPieces (pieces divides kPieces: one cluster a block), copied
+// into `staged` by TMA, and merges each ray's nearest (any-hit: first)
+// hit into keys[ray] (kNoHit on entry).
+__global__ void __launch_bounds__(kRayTile)
+    intersect_dense_kernel(const float* __restrict__ feats,
+                           const float* __restrict__ tminmax,
+                           const float* __restrict__ recs,
+                           const float* __restrict__ c_lo,
+                           const float* __restrict__ c_hi, int pieces,
+                           int any_hit, long long* __restrict__ keys) {
+  extern __shared__ __align__(128) float4 staged[];  // `pieces` pieces
+  __shared__ __align__(8) uint64_t full[kPieces];
+  const int tile = blockIdx.x;
+  const int p0 = blockIdx.y * pieces;  // first piece, of the mesh's
+  const int cid = p0 / kPieces;
+  const size_t ray = (size_t)tile * kRayTile + threadIdx.x;
+  const float* fr = feats + ray * kFeat;
+  const float tmin = tminmax[2 * ray];
+  const float tmax = tminmax[2 * ray + 1];
+  // the cull: the block runs only if one of its rays enters the box
+  {
+    float o[3], inv[3];
+    slab_ray(fr, o, inv);
+    const float* lo = c_lo + (size_t)cid * 3;
+    const float* hi = c_hi + (size_t)cid * 3;
+    if (!__syncthreads_or(slab_enters(o, inv, lo[0], lo[1], lo[2], hi[0],
+                                      hi[1], hi[2], tmin, tmax)))
+      return;
+  }
+  // an empty interval (an inactive lane) holds no hit; in any-hit mode a
+  // ray another block has hit needs no more
+  bool done = !(tmin < tmax);
+  if (any_hit && !done)
+    done = *reinterpret_cast<volatile long long*>(keys + ray) != kNoHit;
+  if (__syncthreads_and(done)) return;
+  if (threadIdx.x == 0)
+    for (int q = 0; q < pieces; ++q) {
+      mbar_init(&full[q]);
+      bulk_load(staged + (size_t)q * kPieceTris * kRecVecs,
+                recs + (size_t)(p0 + q) * kPieceTris * kRecFloats,
+                kPieceBytes, &full[q]);
+    }
+  __syncthreads();  // the barriers exist before anyone waits on them
+  float f[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) f[k] = fr[k];
+  float best_t = kBig;
+  int best_tri = -1;
+  for (int q = 0; q < pieces; ++q) {
+    if (any_hit && !done && q > 0)
+      done = *reinterpret_cast<volatile long long*>(keys + ray) != kNoHit;
+    // thread 0 waits for every copy: they must land before the block's
+    // shared memory is released
+    if (!done || threadIdx.x == 0) mbar_wait(&full[q], 0);
+    if (done) continue;
+    const float4* r = staged + (size_t)q * kPieceTris * kRecVecs;
+    const int base = (p0 + q) * kPieceTris;
+#pragma unroll 2
+    for (int k = 0; k < kPieceTris; ++k) {
+      float t;
+      if (test_record(r + k * kRecVecs, f, tmin, tmax, t) && t < best_t) {
+        best_t = t;
+        best_tri = base + k;
+        if (any_hit) {
+          done = true;
+          break;
+        }
+      }
+    }
+  }
+  if (best_tri >= 0) atomicMin(keys + ray, hit_key(best_t, best_tri));
+}
+
 }  // namespace
 
+// keys: (n_tiles * 128,) int64, kNoHit on entry.  pieces: 1, 2 or 4.
 extern "C" int intersect_dense_launch(const float* feats,
-                                      const float* tminmax, const float* w,
-                                      const int32_t* mask, int n_tiles,
-                                      int n_clusters, int any_hit,
-                                      float* out_t, int32_t* out_tri,
+                                      const float* tminmax, const float* recs,
+                                      const float* c_lo, const float* c_hi,
+                                      int n_tiles, int n_clusters, int pieces,
+                                      int any_hit, long long* keys,
                                       void* stream) {
-  intersect_dense_kernel<<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(
-      feats, tminmax, w, mask, n_clusters, any_hit, out_t, out_tri);
+  if (pieces < 1 || kPieces % pieces != 0 ||
+      n_clusters * (kPieces / pieces) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(n_tiles, n_clusters * (kPieces / pieces));
+  intersect_dense_kernel<<<grid, kRayTile, pieces * kPieceBytes,
+                           (cudaStream_t)stream>>>(
+      feats, tminmax, recs, c_lo, c_hi, pieces, any_hit, keys);
   return (int)cudaGetLastError();
+}
+
+// K3's resident blocks per SM at its block size and `pieces` pieces of
+// shared memory.
+extern "C" int intersect_dense_blocks_per_sm(int pieces, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, intersect_dense_kernel, kRayTile, pieces * kPieceBytes);
 }
 
 extern "C" int tile_cull_launch(const float* feats, const float* tminmax,

@@ -86,8 +86,10 @@ def load_intersect_kernel() -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(build("intersect_kernel")))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.intersect_dense_launch.argtypes = [vp] * 4 + [i] * 3 + [vp] * 3
+        lib.intersect_dense_launch.argtypes = [vp] * 5 + [i] * 4 + [vp] * 2
         lib.intersect_dense_launch.restype = ctypes.c_int
+        lib.intersect_dense_blocks_per_sm.argtypes = [i, vp]
+        lib.intersect_dense_blocks_per_sm.restype = ctypes.c_int
         lib.tile_cull_launch.argtypes = [vp] * 4 + [i] * 2 + [vp] * 3
         lib.tile_cull_launch.restype = ctypes.c_int
         lib.intersect_gather_launch.argtypes = [vp] * 5 + [i] * 4 + [vp] * 2

@@ -55,17 +55,15 @@ def _use_cluster_intersector(scene, coherent: bool = False) -> bool:
 
 
 def _tables(scene):
-    """The mesh's packed weights, cluster bounds and (for meshes that take
-    the gather kernel K4) triangle-major cluster records, built once per
-    scene."""
+    """The mesh's packed weights, cluster bounds and triangle-major cluster
+    records (which K3 and K4 read), built once per scene."""
     from light_transport_tpu_torch.ops import intersect_kernel as ik
 
     mesh = scene.mesh
     if "cluster" not in mesh.derived:
         w = ik.pack_tri_weights(mesh)
-        gather = w.shape[2] // ik.TRI_TILE >= ik.GATHER_MIN_CLUSTERS
         mesh.derived["cluster"] = (w, ik.cluster_bounds(mesh),
-                                   ik.cluster_records(w) if gather else None)
+                                   ik.cluster_records(w))
     return mesh.derived["cluster"]
 
 

@@ -13,21 +13,26 @@ spatially compact, so coherent tiles admit few clusters.
   :func:`_cluster_hits` evaluates them element by element in one fixed
   order, and ``csrc/intersect_kernel.cu`` in the same order, so the two
   round alike.  All of it is FP32.
-* Meshes of fewer than 16 clusters go through the dense kernel (K3,
-  ``intersect_dense``): the torch-op cull mask, then every cluster in
-  turn, the rejected ones skipped.  Larger meshes go through the cull
-  kernel (``tile_cull``: each tile's admitted cluster ids and their
-  count) and the gather kernel (K4, ``intersect_gather``), which reads
-  the triangle-major records of :func:`cluster_records` and merges the
-  (tile, chunk) blocks of a tile through 64-bit keys (:func:`hit_keys`).
-  The TPU kernel capped the id list and chunked the rays for its 1 MB
-  scalar memory; the lists here live in device memory, uncapped.
+* Both kernels read the triangle-major records of :func:`cluster_records`
+  and merge their blocks through 64-bit keys (:func:`hit_keys`).  Meshes
+  of fewer than 16 clusters go through the dense kernel (K3,
+  ``intersect_dense_keys``): one launch over (ray tile, 128-triangle
+  piece) blocks, each block running the cull for its tile and cluster
+  first.  Larger meshes go through the cull kernel (``tile_cull``: each
+  tile's admitted cluster ids and their count) and the gather kernel
+  (K4, ``intersect_gather``) over (tile, chunk of admitted clusters)
+  blocks.  The TPU kernel capped the id list and chunked the rays for
+  its 1 MB scalar memory; the lists here live in device memory,
+  uncapped.
 * Each ray keeps the nearest hit; at equal t the lowest triangle index
   wins (the TPU kernel broke exact ties by the lowest ``tri mod 128``).
 
-``intersect_dense``, ``tile_cull`` and ``intersect_gather`` launch their
-kernel for CUDA tensors and run the plain version for CPU tensors; they
-have no other path.  ``LAUNCHES`` counts the kernel launches of each.
+``intersect_dense_keys``, ``tile_cull`` and ``intersect_gather`` launch
+their kernel for CUDA tensors and run the plain version for CPU tensors;
+they have no other path.  ``LAUNCHES`` counts the kernel launches of each
+(K3's as ``intersect_dense``).  ``intersect_dense`` keeps K3's function
+on JAX's operands (the (C, 16, 2048) weights and a given mask) for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -62,6 +67,13 @@ REC_FLOATS = 20  # a triangle's record: the 19 rows and a pad (80 B)
 # the soft-shadow render's heaviest launches on an H100: chip_smoke.py
 # phase 10's sweep)
 GATHER_CHUNK = 4
+PIECE_TRIS = 128  # triangles of a K3 piece (10,240 B of records)
+PIECES = TRI_TILE // PIECE_TRIS
+# 128-triangle pieces per K3 block (1, 2 or 4: a block stays in one
+# cluster).  1 ran fastest of the three on the glass render's and the
+# 15-cluster batches' heaviest launches on an H100: chip_smoke.py phase 9's
+# sweep
+DENSE_PIECES = 1
 # the key of "no hit": above every hit's key (int64 max)
 NO_HIT_KEY = (1 << 63) - 1
 
@@ -268,8 +280,42 @@ def _reference(feats, tminmax, rows_of, admitted):
 
 
 def intersect_dense_reference(feats, tminmax, w_c, mask):
-    """Plain version of K3: ``mask`` (tiles, C) bool."""
+    """K3's function on JAX's operands, the sequential scan: ``w_c`` the
+    (C, 16, 4 * TRI_TILE) weights, ``mask`` (tiles, C) bool."""
     return _reference(feats, tminmax, _weight_rows(w_c), mask)
+
+
+def intersect_dense_keys_reference(feats, tminmax, recs, c_lo, c_hi):
+    """Plain version of K3's launch: the cull
+    (:func:`tile_cluster_mask`; min and max round nothing, so the
+    kernel's pairwise order admits the same pairs); then, for each
+    admitted (tile, cluster)
+    pair, each ray with a non-empty interval tests each 128-triangle piece
+    (``recs`` the (C, TRI_TILE, 20) records) and keeps the piece's nearest
+    hit, the lowest index on a tie; the pieces merge by the minimum
+    :func:`hit_keys` key.  Returns each ray's key (:data:`NO_HIT_KEY`
+    where it has none); unpacked, it equals the sequential scan
+    (:func:`intersect_dense_reference`) bitwise."""
+    n, dev = feats.shape[0], feats.device
+    admitted = tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tminmax,
+                                 c_lo, c_hi)
+    live = tminmax[:, 0] < tminmax[:, 1]
+    tile = torch.arange(n, device=dev) // RAY_TILE
+    first = torch.arange(PIECES, device=dev) * PIECE_TRIS
+    keys = torch.full((n,), NO_HIT_KEY, dtype=torch.int64, device=dev)
+    rows_of = _record_rows(recs)
+    for j in range(admitted.shape[1]):
+        rays = torch.nonzero(admitted[tile, j] & live).flatten()
+        for s in range(0, rays.shape[0], _PLAIN_CHUNK):
+            r = rays[s:s + _PLAIN_CHUNK]
+            t, valid = _cluster_hits(feats[r], tminmax[r], rows_of(j))
+            t = torch.where(valid, t, BIG).reshape(-1, PIECES, PIECE_TRIS)
+            k = torch.argmin(t, dim=2)  # each piece's first minimum
+            tk = torch.gather(t, 2, k[..., None])[..., 0]
+            tri = (j * TRI_TILE + first + k).to(torch.int32)
+            piece = torch.where(tk < BIG, hit_keys(tk, tri), NO_HIT_KEY)
+            keys[r] = torch.minimum(keys[r], piece.amin(dim=1))
+    return keys
 
 
 def tile_cull_reference(feats, tminmax, c_lo, c_hi):
@@ -357,22 +403,46 @@ def _device_type(t: torch.Tensor, name: str) -> str:
 
 
 def intersect_dense(feats, tminmax, w_c, mask, any_hit=False):
-    """K3: on the card the dense kernel, for CPU tensors
-    :func:`intersect_dense_reference`.  ``mask`` (tiles, C) bool.  Returns
-    (best_t, best_tri) per padded ray."""
+    """K3's function on JAX's operands (the (C, 16, 4 * TRI_TILE) weights
+    and a given (tiles, C) bool mask), for CPU tensors:
+    :func:`intersect_dense_reference`.  Returns (best_t, best_tri) per
+    padded ray.  The card's K3 culls inside its launch and reads the
+    records: :func:`intersect_dense_keys`."""
+    if _device_type(feats, "intersect_dense") != "cpu":
+        raise ValueError("intersect_dense takes CPU tensors; on the card "
+                         "K3 is intersect_dense_keys")
+    return intersect_dense_reference(feats, tminmax, w_c, mask)
+
+
+def intersect_dense_keys(feats, tminmax, recs, c_lo, c_hi, any_hit=False,
+                         pieces=None):
+    """K3: on the card one launch of the dense kernel over (ray tile,
+    ``pieces`` 128-triangle pieces) blocks (default
+    :data:`DENSE_PIECES`), each culling its tile against its cluster's
+    box first; for CPU tensors :func:`intersect_dense_keys_reference`.
+    ``recs`` the (C, TRI_TILE, 20) records, ``c_lo``/``c_hi`` the (C, 3)
+    boxes.  Returns each padded ray's :func:`hit_keys` key
+    (:data:`NO_HIT_KEY` where it has none)."""
     if _device_type(feats, "intersect_dense") == "cpu":
-        return intersect_dense_reference(feats, tminmax, w_c, mask)
+        return intersect_dense_keys_reference(feats, tminmax, recs, c_lo,
+                                              c_hi)
     dev = feats.device
-    tiles, c = _tiles("intersect_dense", feats, tminmax), w_c.shape[0]
-    mask = mask.to(torch.int32)
-    _check(w_c, torch.float32, (c, 16, 4 * TRI_TILE), "weights", dev)
-    _check(mask, torch.int32, (tiles, c), "mask", dev)
-    best_t = torch.empty((feats.shape[0],), dtype=torch.float32, device=dev)
-    best_tri = torch.empty((feats.shape[0],), dtype=torch.int32, device=dev)
+    tiles, c = _tiles("intersect_dense", feats, tminmax), recs.shape[0]
+    _check(recs, torch.float32, (c, TRI_TILE, REC_FLOATS), "records", dev)
+    _check(c_lo, torch.float32, (c, 3), "c_lo", dev)
+    _check(c_hi, torch.float32, (c, 3), "c_hi", dev)
+    if recs.data_ptr() % 16:  # the bulk copies' source
+        raise ValueError("records: must start on a 16-byte boundary")
+    pieces = DENSE_PIECES if pieces is None else int(pieces)
+    if pieces not in (1, 2, 4):
+        raise ValueError(f"intersect_dense: pieces {pieces} not 1, 2 or 4")
+    keys = torch.full((feats.shape[0],), NO_HIT_KEY, dtype=torch.int64,
+                      device=dev)
     if tiles:
-        _run("intersect_dense", dev, _ptr(feats), _ptr(tminmax), _ptr(w_c),
-             _ptr(mask), tiles, c, int(any_hit), _ptr(best_t), _ptr(best_tri))
-    return best_t, best_tri
+        _run("intersect_dense", dev, _ptr(feats), _ptr(tminmax), _ptr(recs),
+             _ptr(c_lo), _ptr(c_hi), tiles, c, pieces, int(any_hit),
+             _ptr(keys))
+    return keys
 
 
 def tile_cull(feats, tminmax, c_lo, c_hi):
@@ -428,16 +498,27 @@ def intersect_gather(feats, tminmax, recs, ids, cnt, any_hit=False):
                                                  cnt, any_hit))
 
 
-def gather_blocks_per_sm() -> int:
-    """K4's resident blocks per SM (CUDA's occupancy calculator)."""
+def _blocks_per_sm(name, *args) -> int:
     from light_transport_tpu_torch.ops._build import load_intersect_kernel
 
     n = ctypes.c_int(0)
-    rc = load_intersect_kernel().intersect_gather_blocks_per_sm(
-        ctypes.byref(n))
+    rc = getattr(load_intersect_kernel(), f"{name}_blocks_per_sm")(
+        *args, ctypes.byref(n))
     if rc != 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
     return n.value
+
+
+def gather_blocks_per_sm() -> int:
+    """K4's resident blocks per SM (CUDA's occupancy calculator)."""
+    return _blocks_per_sm("intersect_gather")
+
+
+def dense_blocks_per_sm(pieces=None) -> int:
+    """K3's resident blocks per SM at ``pieces`` pieces a block (CUDA's
+    occupancy calculator)."""
+    return _blocks_per_sm("intersect_dense",
+                          DENSE_PIECES if pieces is None else int(pieces))
 
 
 def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
@@ -446,8 +527,8 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
                           max_dist=None, clusters=None, records=None):
     """Nearest hit (a :class:`Hit`) or, with ``any_hit``, a bool
     occlusion mask against ``max_dist``; the counterpart of JAX's
-    function of the same name.  ``tri_weights``, ``clusters`` and (for
-    K4) ``records`` default to :func:`pack_tri_weights`,
+    function of the same name.  ``tri_weights``, ``clusters`` and
+    ``records`` default to :func:`pack_tri_weights`,
     :func:`cluster_bounds` and :func:`cluster_records` of ``mesh``."""
     if tri_weights is None:
         tri_weights = pack_tri_weights(mesh)
@@ -463,21 +544,22 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     if n_pad != n:
         feats = torch.cat([feats, feats.new_zeros((n_pad - n, 16))])
         tminmax = torch.cat([tminmax, tminmax.new_zeros((n_pad - n, 2))])
+    if records is None:
+        records = cluster_records(tri_weights)
     if tri_weights.shape[2] // TRI_TILE >= GATHER_MIN_CLUSTERS:
-        if records is None:
-            records = cluster_records(tri_weights)
         ids, cnt = tile_cull(feats, tminmax, c_lo, c_hi)
         best_t, best_tri = intersect_gather(feats, tminmax, records, ids, cnt,
                                             any_hit)
+        best_t, best_tri = best_t[:n], best_tri[:n]
+        if any_hit:
+            return best_tri >= 0
+        valid = (best_tri >= 0) & (best_t < BIG)
     else:
-        mask = tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tminmax, c_lo,
-                                 c_hi)
-        best_t, best_tri = intersect_dense(feats, tminmax,
-                                           cluster_weights(tri_weights), mask,
-                                           any_hit)
-    best_t, best_tri = best_t[:n], best_tri[:n]
-    if any_hit:
-        return best_tri >= 0
-    valid = (best_tri >= 0) & (best_t < BIG)
+        keys = intersect_dense_keys(feats, tminmax, records, c_lo, c_hi,
+                                    any_hit)[:n]
+        valid = keys != NO_HIT_KEY  # a keyed hit has t < BIG
+        if any_hit:
+            return valid
+        best_t, best_tri = unpack_hit_keys(keys)
     return Hit(t=torch.where(valid, best_t, float("inf")),
                tri=torch.where(valid, best_tri, -1), valid=valid)
