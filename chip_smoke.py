@@ -46,30 +46,42 @@ script exits non-zero without the final result line):
      lanes re-traced through the plain intersector, and a profile
  11. the big-mesh scene of scripts/bench_treelet_render.py (a
      4,202,100-triangle sphere in the Cornell box, 4,202,118 triangles)
-     built from the port's modules, each build step timed; the treelet
-     kernels K5 and K5r against the plain roped walk on its camera,
-     bounce-1 and shadow rays (every 9th lane inactive), nearest and any
-     hit, through the single-launch, wavefront and queued drivers (each
-     timed by the host clock); K5/K5r's block and resident blocks per
-     SM, and per K5r launch of the wavefront its node
+     built from the port's modules, each build step timed (the 32-byte
+     node records of K5 among them); the treelet kernels K5 and K5r
+     against the plain roped walk on its camera, bounce-1 and shadow rays
+     (every 9th lane inactive), nearest and any hit, through the
+     single-launch, sorted single-launch (the dispatch's route:
+     ops/raysort.sorted_apply around one K5 launch), wavefront and queued
+     drivers (each timed by the host clock); per K5 launch of the sorted
+     driver its node visits, the share of them whose next node is the
+     adjacent record and its largest per-ray visits; K5/K5r's block and
+     resident blocks per SM, and per K5r launch of the wavefront its node
      visits, the share of them read from shared memory and the treelets
      staged per block; one wavefront query under torch's sync debug mode
      "error" (no host sync between its passes) and the queued driver's
      syncs counted; the dispatch of that scene without treelet tables
      (one K5 launch per query) and without a BVH (refused on the card)
  12. big-mesh render main path: that scene at 256x256, 2 spp, depth 3
-     through K5 (camera rays) and K5r (bounce and shadow rays), the host
-     syncs of a render counted, its heaviest launches re-run through the
-     plain walk (K5r from the lane state it started from), a subset of
-     its lanes re-traced through the plain walk, and a profile (K5's and
-     K5r's device time per launch from it)
+     through the dispatch's default route (every query one sorted K5
+     launch, or the camera rays through K5 and the bounce and shadow
+     rays through the K5r wavefront), its launches counted from 0; then
+     both routes rendered in turns (wavefront, single, single,
+     wavefront), each turn's image bitwise the main path's, with its
+     second-call wall, host syncs, device busy, launches and device time
+     by kernel; the heaviest K5 launch (single route) and K5r launch
+     (wavefront route, from the lane state it started from) re-run
+     through the plain walk, K5's lone slowest ray timed; a subset of
+     the main path's lanes re-traced through the plain walk, and a
+     profile
  13. the feature probes P1-P10 (csrc/probe_kernels.cu): the entry point
      of ops/feature_probes.py runs each in a subprocess of its own (its
      launches counted from 0 there), then each kernel here against its
      plain version on the reference probe's inputs, timed by CUDA events
      (100 calls back to back) and under the profiler (device time a call)
      beside an empty kernel launched the same way, the plain version and,
-     where one exists, a single PyTorch call of the same function
+     where one exists, a single PyTorch call of the same function; P8
+     also on a seeded random table, within a stated tolerance, and timed
+     beside the cast to bf16 and the matmul together
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -110,6 +122,7 @@ from light_transport_tpu_torch.ops import dispatch
 from light_transport_tpu_torch.ops import feature_probes as fp
 from light_transport_tpu_torch.ops import intersect_kernel as ik
 from light_transport_tpu_torch.ops import photon_kernel as pk
+from light_transport_tpu_torch.ops import raysort
 from light_transport_tpu_torch.ops import treelet_kernel as tk
 from light_transport_tpu_torch.scene.cornell import (
     cornell_box_scene,
@@ -184,13 +197,17 @@ SOFT_SHADOW_CFG = RenderConfig(width=400, height=400, spp=10, max_depth=3,
 # and subtracts, a divide, 8 compares and an abs)
 NODE_OPS = 28
 TRI_OPS = 55
-# bytes the treelet walk must move: the 48 it reads of a node record, the
-# 36 of a triangle it tests, and per ray its feature rows and outputs (K5:
-# 11 floats in, best_t, best_tri and visits out; K5r: 10 floats and the
-# cursor, best_t and best_tri in, those three and visits out)
-NODE_BYTES = 48
+# bytes the treelet walk must move: what it reads of a node record (K5
+# one 32-byte record, accel/bvh.node_records32; K5r 48 of a 64-byte fused
+# record), the 36 of a triangle it tests, and per ray its feature rows and
+# outputs (K5: 11 floats in, best_t, best_tri and visits out; K5r: 10
+# floats and the cursor, best_t and best_tri in, those three and visits
+# out)
+NODE_BYTES = {"treelet_walk": 32, "treelet_resume": 48}
 TRI_BYTES = 36
 RAY_BYTES = {"treelet_walk": 44 + 12, "treelet_resume": 52 + 16}
+# what a K5 visit read from the fused records before the 32-byte ones
+FUSED_NODE_BYTES = 48
 
 
 def log(phase, msg, t0=None):
@@ -1498,6 +1515,40 @@ def big_mesh_batches(scene, cfg):
     return (o, d, active), batches
 
 
+def sorted_single(mesh):
+    """The dispatch's single-launch route (ops/dispatch._bvh_query with
+    TREELET_WAVEFRONT off) as a driver: ops/raysort.sorted_apply around
+    one K5 launch, the lanes whose t_max is -inf given to the sort as
+    inactive, as the dispatch gives them; the per-ray visits come back
+    through the sort beside the hits."""
+    def run(o, d, tables, t_max, any_hit=False, with_stats=False):
+        def one(o_, d_, t_):
+            hit, stats = tk.intersect_bvh_treelet(
+                o_, d_, tables, t_max=t_, any_hit=any_hit, with_stats=True)
+            parts = (hit,) if any_hit else tuple(hit)
+            return (*parts, stats["visits"])
+        out = raysort.sorted_apply(one, mesh, o, d, t_max,
+                                   inactive=t_max == float("-inf"))
+        hit = out[0] if any_hit else tk.Hit(*out[:3])
+        return hit, {"visits": out[-1], "passes": 1}
+    return run
+
+
+def log_k5(phase, label, rec):
+    """Per K5 launch a recorder saw: ms by CUDA events, node visits, the
+    share of them whose next node is the adjacent record (what fetching
+    that record ahead would serve), leaf visits, triangle tests and the
+    largest per-ray visits."""
+    n, _, counts = rec.summary()
+    ms = [a.elapsed_time(b) for a, b in rec.events]
+    rows = [f"{t:.4f} ms/{c[0]}/{c[5] / max(c[0], 1):.3f}/{c[1]}/{c[2]}/"
+            f"{v}" for t, c, v in zip(ms, counts, rec.max_visits())]
+    log(phase, f"{label}: K5 launches (events/node visits/share to the "
+               f"adjacent record/leaf visits/triangle tests/largest per-ray "
+               f"visits): "
+               + " ".join(rows))
+
+
 def phase11(scene, cfg):
     """K5 and K5r against the plain walk on the big scene's own rays."""
     tables = scene.treelet
@@ -1505,13 +1556,16 @@ def phase11(scene, cfg):
     (o, d, active), batches = big_mesh_batches(scene, cfg)
     n = o.shape[0]
     cfg_k = treelet_residency(tables.T)
-    log(11, f"K5/K5r: {cfg_k['block']} threads a block; K5r's bounded passes "
+    log(11, f"K5/K5r: {cfg_k['block']} threads a block; K5 reads 32-byte "
+            f"node records and a leaf's row in 16-byte loads; K5r's bounded "
+            f"passes "
             f"stage one treelet of {tables.T * 64} bytes a block, its "
             f"unbounded pass reads global memory; resident blocks per SM: K5 "
             f"{cfg_k['k5_blocks']}, K5r bounded {cfg_k['bounded_blocks']}, "
             f"unbounded {cfg_k['last_blocks']}")
     drivers = {
         "single": tk.intersect_bvh_treelet,
+        "sorted single": sorted_single(scene.mesh),
         "wavefront": functools.partial(
             tk.intersect_bvh_treelet_wavefront,
             loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
@@ -1551,7 +1605,14 @@ def phase11(scene, cfg):
                     f"({plain_ms[(label, mode)]:.0f} ms) in valid, tri, t "
                     f"and visits (mean {float(vis.float().mean()):.1f}, max "
                     f"{int(vis.max())}) through " + ", ".join(parts))
-            # the wavefront once more, each K5r launch counted
+            # the sorted single launch and the wavefront once more, each
+            # launch counted
+            with TreeletRecorder("treelet_walk") as rec:
+                got = drivers["sorted single"](bo, bd, tables, t_max=t_hi,
+                                               any_hit=any_hit,
+                                               with_stats=True)
+            same_hits(f"{label}, {mode}, sorted single (counted)", got, want)
+            log_k5(11, f"{label}, {mode}, sorted single", rec)
             with TreeletRecorder("treelet_resume") as rec:
                 got = drivers["wavefront"](bo, bd, tables, t_max=t_hi,
                                            any_hit=any_hit, with_stats=True)
@@ -1690,15 +1751,17 @@ def count_syncs(fn, where=None):
 class TreeletRecorder:
     """Wraps a treelet wrapper while installed: CUDA events around each
     launch, the launch's own counts (node visits, leaf visits, triangle
-    tests, node visits from shared memory, treelets staged), and its
-    operands (for K5r a copy of the lane state and gate it started from),
-    for holding the kernel against the plain walk on the heaviest launch.
-    Fails if a call it sees launches no kernel."""
+    tests, node visits from shared memory, treelets staged, node visits
+    whose next node is the adjacent record), its operands (for K5r a copy of
+    the lane state and gate it started from) and, for K5, its per-ray
+    visits, for holding the kernel against the plain walk on the heaviest
+    launch.  Fails if a call it sees launches no kernel."""
 
     def __init__(self, name):
         self.name = name
         self.resume = name == "treelet_resume"
         self.events, self.counts, self.launched = [], [], []
+        self.visits = []  # K5: each launch's per-ray visits
 
     def __call__(self, *args):
         counts = torch.zeros((tk.N_COUNTS,), dtype=torch.int64, device=DEV)
@@ -1719,7 +1782,13 @@ class TreeletRecorder:
               f"{self.name}: the call launched no kernel")
         self.events.append((a, b))
         self.counts.append(counts)
+        if not self.resume:
+            self.visits.append(out[2])
         return out
+
+    def max_visits(self):
+        """K5: each launch's largest per-ray visits."""
+        return [int(v.max()) if v.numel() else 0 for v in self.visits]
 
     def __enter__(self):
         self.wrapped = getattr(tk, self.name)
@@ -1786,17 +1855,62 @@ class TreeletRecorder:
             if int(both.sum()) else 0.0
         ms = cuda_ms_each(lambda: None, lambda: self._run(args), 5) \
             if not self.resume else self.resume_ms(args, 5)
-        nodes, leaves, tris, smem, staged = counts[k]
+        nodes, leaves, tris, smem, staged, adjacent = counts[k]
         rays = args[0].shape[1]
         bound = self.bound(counts[k], rays)
         mode = "any hit" if args[5 if self.resume else 2] else "nearest"
         log(12, f"{self.name}, heaviest launch of the render ({mode}, "
                 f"{rays} rays, {nodes} node visits ({smem} from shared "
-                f"memory), {leaves} leaf visits, {tris} triangle tests, "
-                f"{staged} treelets staged): bitwise equal to the plain "
-                f"walk; kernel {ms:.4f} ms, plain {ms_p:.1f} ms, bound "
-                f"{bound[0]:.4f} ms ({bound[1]})")
+                f"memory, {adjacent} to the adjacent record), {leaves} leaf "
+                f"visits, "
+                f"{tris} triangle tests, {staged} treelets staged): bitwise "
+                f"equal to the plain walk; kernel {ms:.4f} ms, plain "
+                f"{ms_p:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        if not self.resume:
+            self.k5_diagnostic(args, counts[k], int(want[3].max()), ms)
         return ms, ms_p, bound, counts[k], err
+
+    def k5_diagnostic(self, args, counts, max_visits, ms):
+        """Beside K5's bound: the bytes its 32-byte records make it read
+        (one a visit, the bound's count) against the 48 the fused records
+        took, the share of its visits to the adjacent
+        record, its largest per-ray visits, and the diagnostic "largest
+        visits x one visit's time on a lone ray", the lone ray being the
+        launch's slowest, walked alone in a launch of one block (the other
+        lanes dead)."""
+        feats, tables, any_hit = args
+        nodes, _, tris, _, _, adjacent = counts
+        rays = feats.shape[1]
+        tail = tris * TRI_BYTES + rays * RAY_BYTES["treelet_walk"]
+        _, _, visits = self.wrapped(feats, tables, any_hit)
+        slow = int(torch.argmax(visits))
+        lone = torch.zeros((16, tk.DEFAULT_R), dtype=torch.float32,
+                           device=DEV)
+        lone[:, 0] = feats[:, slow]
+        lone[5, 1:] = 1.0  # dead lanes, as _make_feats pads
+        lone[6:8, 1:] = 1e20
+        lone[8, 1:] = 1.0
+        lone[10, 1:] = float("-inf")
+        _, _, lv = self.wrapped(lone, tables, any_hit)
+        check(int(lv[0]) == max_visits, f"lone ray: {int(lv[0])} visits, "
+                                        f"{max_visits} in the launch")
+        lone_ms = cuda_ms_each(lambda: None, lambda: self.wrapped(
+            lone, tables, any_hit), 5)
+        per_visit = lone_ms / max_visits
+        fused = nodes * FUSED_NODE_BYTES + tail
+        log(12, f"treelet_walk diagnostics of that launch: the 32-byte "
+                f"records make it read "
+                f"{(nodes * NODE_BYTES['treelet_walk'] + tail) / 1e6:.3f} MB, "
+                f"the bound's count (the fused records read "
+                f"{fused / 1e6:.3f} MB at 48 bytes a visit, "
+                f"{bound_ms(0, fused)[0]:.4f} ms at the memory rate); "
+                f"{adjacent / max(nodes, 1):.3f} of "
+                f"its visits go on to the adjacent record; largest per-ray "
+                f"visits {max_visits}; that ray alone {lone_ms:.4f} ms = "
+                f"{per_visit * 1e6:.1f} ns a visit; diagnostic (not a bound): "
+                f"largest visits x a lone visit = "
+                f"{max_visits * per_visit:.4f} ms against the launch's "
+                f"{ms:.4f} ms")
 
     def resume_ms(self, args, reps):
         """K5r's device time on ``args``, each launch from the same lane
@@ -1816,7 +1930,7 @@ class TreeletRecorder:
         and its rays."""
         nodes, _, tris = counts[:3]
         return bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
-                        nodes * NODE_BYTES + tris * TRI_BYTES
+                        nodes * NODE_BYTES[self.name] + tris * TRI_BYTES
                         + rays * RAY_BYTES[self.name])
 
     def mean_bound(self):
@@ -1826,53 +1940,155 @@ class TreeletRecorder:
                    zip(counts, self.launched)) / max(len(counts), 1)
 
 
-def phase12(scene, cfg):
-    """The big-mesh render through K5 and K5r."""
-    n_lanes = cfg.width * cfg.height * cfg.spp
+# the dispatch's two routes for big-mesh bounce and shadow rays
+# (dispatch.TREELET_WAVEFRONT), and the order phase 12 renders them in
+ROUTES = {"wavefront": True, "single": False}
+ROUTE_TURNS = ("wavefront", "single", "single", "wavefront")
+
+
+@contextlib.contextmanager
+def treelet_route(name):
+    """dispatch.TREELET_WAVEFRONT set for route ``name``, restored after."""
+    saved = dispatch.TREELET_WAVEFRONT
+    dispatch.TREELET_WAVEFRONT = ROUTES[name]
+    try:
+        yield
+    finally:
+        dispatch.TREELET_WAVEFRONT = saved
+
+
+def zero_counts():
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
     for name in ik.LAUNCHES:
         ik.LAUNCHES[name] = 0
     bvh_mod.PLAIN_WALKS = 0
+
+
+def check_route(name, launches):
+    """A big-mesh render's counts, set to 0 just before it: K5 launched,
+    K5r exactly on the wavefront route, no plain walk and no cluster
+    kernel."""
+    check(launches["treelet_walk"] > 0, f"{name} route: no K5 launched")
+    if ROUTES[name]:
+        check(launches["treelet_resume"] > 0,
+              f"{name} route: no K5r launched")
+    else:
+        check(launches["treelet_resume"] == 0,
+              f"{name} route: K5r launched {launches['treelet_resume']} "
+              f"times")
+    check(bvh_mod.PLAIN_WALKS == 0,
+          f"{name} route: the plain walk ran {bvh_mod.PLAIN_WALKS} times")
+    check(sum(ik.LAUNCHES.values()) == 0,
+          f"{name} route: the cluster kernels launched: {ik.LAUNCHES}")
+
+
+def route_turn(scene, cfg, name, ref):
+    """One turn of route ``name``: a render with the counts set to 0
+    before it (its image bitwise ``ref``), the second call's wall, the
+    host syncs of a third and a fourth under the profiler.  Returns the
+    turn's numbers."""
+    with treelet_route(name):
+        zero_counts()
+        img = lt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+        launched = dict(tk.LAUNCHES)
+        check_route(name, launched)
+        check(torch.equal(img, ref),
+              f"the {name} route's image differs from the main path's")
+        t0 = time.perf_counter()
+        lt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = count_syncs(lambda: lt.render(scene, cfg, seed=0))
+        busy, n_launch, rows = device_profile(
+            lambda: lt.render(scene, cfg, seed=0))
+    by_cat = {}
+    for key, (ms, c) in rows.items():
+        cat = kernel_category(key)
+        t, n = by_cat.get(cat, (0.0, 0))
+        by_cat[cat] = (t + ms, n + c)
+    return {"launched": launched, "wall": wall, "syncs": syncs,
+            "busy": busy, "launches": n_launch, "by_cat": by_cat}
+
+
+def log_routes(turns):
+    """Each route's turns side by side, and which route wins on device
+    busy and on launches (the wall is host-noisy: its spread is given)."""
+    per = {}
+    for name, r in turns:
+        per.setdefault(name, []).append(r)
+    for name, rs in per.items():
+        def each(fmt, fn):
+            return ", ".join(fmt.format(fn(r)) for r in rs)
+        log(12, f"{name} route, {len(rs)} turns: second-call wall "
+                f"{each('{:.2f}', lambda r: r['wall'] * 1e3)} ms; device "
+                f"busy {each('{:.3f}', lambda r: r['busy'])} ms (share "
+                f"{each('{:.3f}', lambda r: r['busy'] / r['wall'] / 1e3)}); "
+                f"launches {each('{}', lambda r: r['launches'])}; host "
+                f"syncs {each('{}', lambda r: r['syncs'])}; treelet "
+                f"launches {rs[0]['launched']}; device ms by kernel (first "
+                f"turn): " + ", ".join(
+                    f"{k} {v[0]:.3f} (x{v[1]})"
+                    for k, v in sorted(rs[0]["by_cat"].items())))
+    mean = {name: {k: sum(r[k] for r in rs) / len(rs)
+                   for k in ("busy", "launches", "wall")}
+            for name, rs in per.items()}
+    for key in ("busy", "launches", "wall"):
+        win = min(mean, key=lambda n_: mean[n_][key])
+        log(12, f"route by mean {key}: " + ", ".join(
+            f"{n_} {v[key]:.4f}" for n_, v in mean.items())
+            + f"; lower: {win}")
+    return per
+
+
+def phase12(scene, cfg):
+    """The big-mesh render through the dispatch's default route (the main
+    path), then both routes in turns, the heaviest launches held against
+    the plain walk, a re-trace and a profile."""
+    n_lanes = cfg.width * cfg.height * cfg.spp
+    main = "wavefront" if dispatch.TREELET_WAVEFRONT else "single"
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, samples = pt.render_image(scene, cfg, seed=0, return_samples=True)
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
-    walks = bvh_mod.PLAIN_WALKS
-    check(launches["treelet_walk"] > 0, "the render launched no K5")
-    check(launches["treelet_resume"] > 0, "the render launched no K5r")
-    check(walks == 0, f"the plain walk ran {walks} times in the render")
-    check(sum(ik.LAUNCHES.values()) == 0,
-          f"the render launched the cluster kernels: {ik.LAUNCHES}")
-    t0 = time.perf_counter()
-    img2 = lt.render(scene, cfg, seed=0)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
+    check_route(main, launches)
+    log(12, f"main path: the {main} route (dispatch.TREELET_WAVEFRONT = "
+            f"{dispatch.TREELET_WAVEFRONT}); first render {wall1:.3f} s; "
+            f"launches counted from 0: {launches}")
+    turns = [(name, route_turn(scene, cfg, name, img))
+             for name in ROUTE_TURNS]
+    per = log_routes(turns)
+    wave_launches = per["wavefront"][0]["launched"]
     sync_at = {}
-    syncs = count_syncs(lambda: lt.render(scene, cfg, seed=0), sync_at)
-    t0 = time.perf_counter()
-    with TreeletRecorder("treelet_walk") as k5, \
-            TreeletRecorder("treelet_resume") as k5r:
-        lt.render(scene, cfg, seed=0)
-        torch.cuda.synchronize()
-    wall3 = time.perf_counter() - t0
-    check(bvh_mod.PLAIN_WALKS == 0, "the plain walk ran in the render")
-    per = {}
-    for rec in (k5, k5r):
-        n, ms, counts = rec.summary()
-        per[rec.name] = (n, ms)
-        log(12, f"{rec.name}: {n} launches, {ms:.3f} ms per launch by CUDA "
-                f"events, {sum(c[0] for c in counts)} node visits in all "
-                f"(per launch {[c[0] for c in counts]})")
-    log(12, f"big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
-            f"{cfg.max_depth} ({scene.mesh.num_triangles} triangles, "
-            f"{n_lanes} lanes): first render {wall1:.3f} s, second "
-            f"{wall2:.3f} s, third {wall3:.3f} s (events around every "
-            f"launch); launches {launches}; host syncs in a render {syncs} "
-            f"({', '.join(f'{k} x{v}' for k, v in sorted(sync_at.items()))})")
-    # re-trace every 97th lane through the plain walk
+    with treelet_route(main):
+        count_syncs(lambda: lt.render(scene, cfg, seed=0), sync_at)
+    log(12, f"host syncs of a {main}-route render by place: "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(sync_at.items())))
+    recs = {}
+    for name, kernels in (("single", ("treelet_walk",)),
+                          ("wavefront", ("treelet_walk", "treelet_resume"))):
+        with treelet_route(name), contextlib.ExitStack() as stack:
+            rs = [stack.enter_context(TreeletRecorder(k)) for k in kernels]
+            t0 = time.perf_counter()
+            lt.render(scene, cfg, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(bvh_mod.PLAIN_WALKS == 0, "the plain walk ran in the render")
+        for rec in rs:
+            n, ms, counts = rec.summary()
+            log(12, f"{name} route, {rec.name}: {n} launches, {ms:.4f} ms "
+                    f"per launch by CUDA events, {sum(c[0] for c in counts)} "
+                    f"node visits in all (per launch "
+                    f"{[c[0] for c in counts]}); render with events around "
+                    f"every launch {wall:.3f} s")
+            if not rec.resume:
+                log_k5(12, f"{name} route", rec)
+        recs[name] = dict(zip(kernels, rs))
+    # re-trace every 97th lane of the main path through the plain walk
     t0 = time.perf_counter()
     o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
     lanes = torch.arange(0, n_lanes, 97, device=DEV)
@@ -1884,29 +2100,37 @@ def phase12(scene, cfg):
     frac = float(close.float().mean())
     mean = float(img.mean())
     log(12, f"plain re-trace of {lanes.shape[0]} lanes: {frac:.5f} within "
-            f"rtol 1e-3; image mean {mean:.5f}, two renders equal "
-            f"{bool(torch.equal(img, img2))}", t0)
+            f"rtol 1e-3; image mean {mean:.5f}; both routes' images bitwise "
+            f"the main path's", t0)
     check(bool(torch.isfinite(img).all()), "big-mesh image not finite")
     check(mean > 0.0, "big-mesh image is black")
     check(frac >= 0.99, f"plain re-trace: {frac} of lanes agree")
-    by_kernel = profile_render(scene, cfg, wall2, phase=12, host_top=8)
+    wall2 = min(r["wall"] for r in per[main])
+    with treelet_route(main):
+        profile_render(scene, cfg, wall2, phase=12, host_top=8)
+    # each kernel's device time a launch under the profiler: K5 on the
+    # single route, K5r on the wavefront route (first turn of each)
     prof_ms = {}
-    for name, cat in (("treelet_walk", "K5"), ("treelet_resume", "K5r")):
-        rows = [(t, c) for t, c, key in by_kernel
-                if kernel_category(key) == cat]
-        t, c = sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+    for name, route, cat in (("treelet_walk", "single", "K5"),
+                             ("treelet_resume", "wavefront", "K5r")):
+        t, c = per[route][0]["by_cat"][cat]
         prof_ms[name] = t / max(c, 1)
-        log(12, f"{name} under the profiler: {c} launches, "
+        log(12, f"{name} under the profiler ({route} route): {c} launches, "
                 f"{prof_ms[name]:.4f} ms per launch ({t:.3f} ms in all)")
-    return launches, (k5, k5r), prof_ms
+    k5_launches = {"treelet_walk": launches["treelet_walk"],
+                   "treelet_resume": wave_launches["treelet_resume"]}
+    k5_recs = (recs["single"]["treelet_walk"],
+               recs["wavefront"]["treelet_resume"])
+    return k5_launches, k5_recs, prof_ms
 
 
 def kernel_category(key):
     """A profiler kernel name's part of a treelet query: K5, K5r, sort,
     gather (index ops), reduce, or other."""
+    if "treelet_walk32<" in key:
+        return "K5"
     if "treelet_walk<" in key:
-        resume = key.split("treelet_walk<")[1].split(",")[1].strip()
-        return "K5r" if resume.startswith("true") else "K5"
+        return "K5r"
     low = key.lower()
     if "radixsort" in low or "sort" in low:
         return "sort"
@@ -2028,6 +2252,8 @@ def phase13():
         if name in ("p_red_when", "p_when_mm"):  # the branch not taken
             other = (torch.zeros_like(args[0]), *args[1:])  # min 0, flag 0
             fp.agree(name, wrapper(*other), plain(*other))
+        if name == "p_when_mm":
+            log(13, p8_random(wrapper, plain, args))
         ms = cuda_ms(lambda: wrapper(*args), PROBE_REPS)
         plain_ms = cuda_ms(lambda: plain(*args), 20)
         lib = probe_library(name, args)
@@ -2038,6 +2264,16 @@ def phase13():
         bound = bound_ms(ops, nbytes, peak)
         same = ("bitwise equal to" if bitwise
                 else "within 2^-16 of the largest bin of")
+        if name == "p_when_mm":  # the yardstick's operand is cast already
+            a32 = args[1][1]
+            pair = lambda: torch.matmul(  # noqa: E731
+                *(lambda a: (a, a.T))(a32.to(torch.bfloat16)))
+            log(13, f"p_when_mm beside its yardsticks, device time a call "
+                    f"under the profiler: kernel {dev_ms:.5f} ms, bf16 "
+                    f"matmul {lib_dev:.5f} ms, cast to bf16 then matmul "
+                    f"{probe_device_ms(pair):.5f} ms; by CUDA events: "
+                    f"kernel {ms:.5f}, matmul {lib_ms:.5f}, cast then "
+                    f"matmul {cuda_ms(pair, PROBE_REPS):.5f} ms")
         log(13, f"{name}: kernel {same} its plain version (max abs err "
                 f"{err:.3e}); kernel {ms:.5f} ms a launch by CUDA events over"
                 f" {PROBE_REPS} launches, an empty kernel launched the same "
@@ -2055,6 +2291,33 @@ def phase13():
             r["launches"], err, ms, plain_ms, bound, lib_ms))
     log(13, "probes timed", t0)
     return entries
+
+
+# P8 on a random table: each output is a sum of 256 bf16 products (exact
+# in float32), added in another order by the tensor cores than by the
+# plain float32 matmul.  Each of the 255 additions errs by at most 2^-24
+# of sum |a_ik a_jk| rounded to nearest (the plain matmul), 2^-23 if the
+# tensor cores truncate, so the two lie within 255 x (2^-23 + 2^-24) <
+# 2^-14 of that sum of each other
+P8_RANDOM_TOL = 2.0 ** -14
+
+
+def p8_random(wrapper, plain, args):
+    """P8's kernel against its plain version on a seeded random table
+    (flag 1): within P8_RANDOM_TOL of (|A| |A|^T) elementwise."""
+    tab = torch.randn((2, 128, 256), generator=generator(13), device=DEV)
+    got, want = wrapper(args[0], tab), plain(args[0], tab)
+    a = tab[1].to(torch.bfloat16).to(torch.float32).abs()
+    scale = a @ a.T
+    err = (got - want).abs()
+    worst = float((err / scale).max())
+    check(bool((err <= P8_RANDOM_TOL * scale).all()),
+          f"p_when_mm on a random table: error {worst:.3e} of sum |a a| "
+          f"> {P8_RANDOM_TOL:.3e}")
+    return (f"p_when_mm on a seeded random table: max abs err "
+            f"{float(err.max()):.3e}, at most {worst:.3e} of sum |a_ik a_jk| "
+            f"(limit 2^-14), bitwise equal in "
+            f"{int((got == want).sum())} of {got.numel()} outputs")
 
 
 def probe_device_ms(fn):
@@ -2150,12 +2413,14 @@ def main():
     check(tab is not None, "with_bvh attached no treelet tables")
     log(11, f"big-mesh scene: {scene.mesh.num_triangles} triangles, "
             f"{tab.num_nodes} BVH nodes, {tab.n_treelets} treelets of "
-            f"{tab.T}, node and leaf records {tab.nbytes / 1e9:.3f} GB; "
-            f"seconds: mesh {timings['mesh_s']:.1f}, tree build "
-            f"{timings['build_s']:.1f}, skip ropes {timings['skip_s']:.2f}, "
-            f"records {timings['records_s']:.1f}, all "
-            f"{timings['total_s']:.1f}")
-    check(tab.node is scene.bvh.node_rec and tab.leaf is scene.bvh.leaf_rec,
+            f"{tab.T}, node and leaf records {tab.nbytes / 1e9:.3f} GB, "
+            f"K5's 32-byte node records "
+            f"{tab.node32.numel() * 4 / 1e6:.1f} MB; seconds: mesh "
+            f"{timings['mesh_s']:.1f}, tree build {timings['build_s']:.1f}, "
+            f"skip ropes {timings['skip_s']:.2f}, fused and 32-byte records "
+            f"{timings['records_s']:.1f}, all {timings['total_s']:.1f}")
+    check(tab.node is scene.bvh.node_rec and tab.leaf is scene.bvh.leaf_rec
+          and tab.node32 is scene.bvh.node32,
           "the treelet tables copied the BVH's records")
     phase11(scene, cfg)
     k5_launches, recs, prof_ms = phase12(scene, cfg)

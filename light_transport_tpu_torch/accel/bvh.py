@@ -6,7 +6,8 @@ the mesh (its triangle order also decides which triangles share a
 512-triangle cluster of ``ops.intersect_kernel``) and emits the fused
 records the walk gathers: one 16-float node row (bounds, then ``first``,
 ``count`` and the ``skip`` rope bitcast into floats 6:9) and one leaf row
-holding all of a leaf's triangles.
+holding all of a leaf's triangles, and the same nodes again in the
+8-float (32-byte) rows of :func:`node_records32` that the K5 kernel reads.
 
 :func:`roped_walk` is the stackless roped traversal, lanes in lockstep,
 op for op after JAX's ``_slab`` and ``_mt_single``.  It is both the
@@ -61,6 +62,8 @@ class BVH:
     # / 8)) [v0, e1, e2] of each leaf triangle (zeros for interior nodes)
     node_rec: torch.Tensor
     leaf_rec: torch.Tensor
+    # the same nodes in (M, 8) 32-byte records (node_records32)
+    node32: torch.Tensor
     max_leaf: int = 4
 
     @property
@@ -197,7 +200,7 @@ def build(mesh: TriangleMesh, max_leaf: int = 4, use_native: bool = True,
     """Build a BVH for ``mesh``; returns (bvh, reordered mesh), both on the
     mesh's device.  ``timings``, if given, receives the seconds of the
     tree build (``build_s``, native or numpy), the ropes (``skip_s``) and
-    the fused records (``records_s``)."""
+    the fused and 32-byte records (``records_s``)."""
     t0 = time.perf_counter()
     h_v0, h_e1, h_e2 = mesh.host_arrays()[:3]
     centroid = mesh.centroid.cpu().numpy().astype(np.float64)
@@ -235,6 +238,7 @@ def build(mesh: TriangleMesh, max_leaf: int = 4, use_native: bool = True,
         leaf_rec[:, 9 * k: 9 * k + 9] = np.where(valid[:, None],
                                                  tri_flat[pi], 0.0)
     del tri_flat
+    node32 = node_records32(torch.from_numpy(node_rec))
 
     def t(a, dt):
         return torch.as_tensor(np.asarray(a, dt), device=mesh.device)
@@ -244,11 +248,41 @@ def build(mesh: TriangleMesh, max_leaf: int = 4, use_native: bool = True,
               right=t(nright, np.int32), first=t(nfirst, np.int32),
               count=t(ncount, np.int32), axis=t(naxis, np.int32),
               skip=t(skip, np.int32), node_rec=t(node_rec, np.float32),
-              leaf_rec=t(leaf_rec, np.float32), max_leaf=max_leaf)
+              leaf_rec=t(leaf_rec, np.float32),
+              node32=node32.to(mesh.device), max_leaf=max_leaf)
     if timings is not None:
         timings.update(build_s=t1 - t0, skip_s=t2 - t1,
                        records_s=time.perf_counter() - t2)
     return bvh, mesh.select(order)
+
+
+def node_records32(node_rec: torch.Tensor) -> torch.Tensor:
+    """The 32-byte node records of a BVH's (M, 16) fused node records:
+    (M, 8) float32 rows ``[min x, min y, min z, max x][max y, max z, skip,
+    first << 3 | count]``, the two words int32 bitcast into floats.  The
+    box floats are ``node_rec``'s bits; ``count`` is at most 7 and
+    ``first`` below 2^28, so an arithmetic shift gives it back."""
+    ints = node_rec[:, 6:9].view(torch.int32)
+    first, count, skip = ints[:, 0], ints[:, 1], ints[:, 2]
+    rec = torch.empty((node_rec.shape[0], 8), dtype=torch.float32,
+                      device=node_rec.device)
+    rec[:, 0:6] = node_rec[:, 0:6]
+    words = rec[:, 6:8].view(torch.int32)
+    words[:, 0] = skip
+    words[:, 1] = (first << 3) | count
+    return rec
+
+
+def node_fields(rec: torch.Tensor):
+    """``(lo, hi, first, count, skip)`` of gathered node records, rows of
+    the 16-float fused layout or of the 8-float one of
+    :func:`node_records32`."""
+    if rec.shape[1] == 8:
+        words = rec[:, 6:8].view(torch.int32)
+        skip, packed = words[:, 0], words[:, 1]
+        return rec[:, 0:3], rec[:, 3:6], packed >> 3, packed & 7, skip
+    ints = rec[:, 6:9].view(torch.int32)
+    return rec[:, 0:3], rec[:, 3:6], ints[:, 0], ints[:, 1], ints[:, 2]
 
 
 # --------------------------------------------------------------------------
@@ -293,13 +327,11 @@ def _walk_steps(lanes, node_rec, leaf_rec, m, max_leaf, any_hit, T,
         if max_loads:
             active = active & (lanes["loads"] <= max_loads)
         node = torch.where(active, cursor, 0).long()
-        rec = node_rec[node]
-        ints = rec[:, 6:9].view(torch.int32)
-        first, count, skip = ints[:, 0], ints[:, 1], ints[:, 2]
+        lo, hi, first, count, skip = node_fields(node_rec[node])
         # slab test, op for op JAX's _slab (boxes behind the origin count
         # from 0)
-        t1 = (rec[:, 0:3] - o) * inv
-        t2 = (rec[:, 3:6] - o) * inv
+        t1 = (lo - o) * inv
+        t2 = (hi - o) * inv
         tn = torch.minimum(t1, t2).amax(dim=-1)
         tf = torch.maximum(t1, t2).amin(dim=-1)
         tn = torch.clamp(tn, min=0.0)
@@ -338,7 +370,9 @@ def roped_walk(node_rec, leaf_rec, num_nodes: int, max_leaf: int,
                any_hit: bool = False, T: int = 1, max_loads: int = 0):
     """The roped walk of every lane from its ``cursor``, ``best_t`` and
     ``best_tri``; returns the new ``(cursor, best_t, best_tri, visits)``,
-    ``visits`` counting this call's node visits per lane.
+    ``visits`` counting this call's node visits per lane.  ``node_rec``
+    holds the fused 16-float node rows or the 32-byte rows of
+    :func:`node_records32`: the walk reads the same values from either.
 
     A hit interior node advances the cursor to ``node + 1``, anything else
     follows the rope; a leaf whose box the ray enters tests its triangles

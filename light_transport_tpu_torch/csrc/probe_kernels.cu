@@ -11,10 +11,11 @@
 // staging of a cluster's weights or a treelet, tensor-core histogram
 // flushes in place of atomics, lockstep walks of a ray tile.
 //
-// Every kernel runs as one block of 256 threads (8 warps).  At these sizes
-// (4 KiB to 192 KiB moved) a launch costs more than the work, so what
-// bounds each probe on the card is the launch; the kernels are written to
-// be right and to show the mechanism plainly, not to be fast.
+// Every kernel but P8 runs as one block of 256 threads (8 warps).  At
+// these sizes (4 KiB to 192 KiB moved) a launch costs more than the work,
+// so what bounds each probe on the card is the launch; the kernels are
+// written to be right and to show the mechanism plainly, not to be fast.
+// P8 is split over 64 blocks of 4 warps (see there).
 //
 // Every launch function returns cudaGetLastError() after its launch.  A
 // table index outside the table traps (as torch's device-side index
@@ -45,11 +46,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One thread: an mbarrier expecting one arrival, made visible to the other
-// threads and to the async proxy (the caller syncs the block after).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+// One thread: an mbarrier expecting `arrivals` arrivals, made visible to
+// the other threads and to the async proxy (the caller syncs the block
+// after).
+__device__ __forceinline__ void mbar_init(uint64_t* bar,
+                                          uint32_t arrivals = 1) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(1)
+               "r"(arrivals)
                : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
@@ -316,61 +319,116 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// P8 p_when_mm (:251): if flag > 0, copy tab[1] (128 x 256 float32, 128
-// KiB) into dynamic shared memory by one TMA bulk copy, A = bf16(tab[1]),
-// out = (A A^T)[:, :128] on the tensor cores; else zeros.  The flag is
-// read on the device by every thread, so the branch is block-uniform.
-// The 128 KiB buffer is above the 48 KiB default and needs the opt-in
-// attribute set at launch.  Warp w computes rows 16w..16w+15 of the
-// product over all 16 n-tiles, converting A's float32 rows to bf16 pairs
-// as it builds both fragments from shared memory (B = A^T: B[k][n] =
-// A[n][k]).
+// P8 p_when_mm (:251): if flag > 0, out = (A A^T)[:, :128] with A =
+// bf16(tab[1]) (128 x 256), summed in float32 on the tensor cores; else
+// zeros.  The flag is read on the device by every thread, so the branch is
+// block-uniform.
+//
+// A grid of 8 x 8 blocks of 4 warps, each block one 16 x 16 tile of the
+// output (rows r0.., columns c0..).  The tile needs rows r0..r0+15 of A and
+// rows c0..c0+15 (B = A^T: B[k][n] = A[n][k]); thread 0 copies those two
+// 16 KiB row ranges (one on the diagonal) into shared memory by TMA bulk
+// copies completing one mbarrier, while every thread reads the flag.  The
+// block converts each element to bf16 once, into rows padded to 264
+// elements (528 bytes: the eight 16-byte row addresses of an ldmatrix fall
+// on eight different groups of four banks, so the loads are free of bank
+// conflicts); warp w then takes k in [64w, 64w + 64): four k-steps of one
+// ldmatrix.x4 for A's fragment, one for two n-tiles of B's and two
+// mma.sync.m16n8k16, and the four partial tiles are added in warp order.
+// The copies land in the block's shared memory, so a block
+// waits for them whichever way it branches.  Its 48.5 KiB of dynamic
+// shared memory are above the 48 KiB default and need the opt-in
+// attribute set at launch.
 // ---------------------------------------------------------------------------
-constexpr int kM8 = 128;
-constexpr int kK8 = 256;
-constexpr uint32_t kSmem8 = kM8 * kK8 * sizeof(float);
+constexpr int kM8 = 128;       // rows of A and of the output
+constexpr int kK8 = 256;       // columns of A
+constexpr int kTile8 = 16;     // a block's output tile
+constexpr int kThreads8 = 128;
+constexpr int kWarps8 = kThreads8 / 32;
+constexpr int kLd8 = kK8 + 8;  // bf16 row stride in shared memory
+constexpr uint32_t kRows8 = kTile8 * kK8 * sizeof(float);  // 16 KiB
+constexpr uint32_t kSmem8 = 2 * kRows8 + 2 * kTile8 * kLd8 * 2;
 
-__device__ __forceinline__ uint32_t bf16_pair(const float* a, int row,
-                                              int k) {
-  const float2 v = *reinterpret_cast<const float2*>(a + row * kK8 + k);
-  return pack_bf16(bf16_bits(v.x), bf16_bits(v.y));
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, and r[i] receives each thread's pair of it in the
+// mma fragment layout (row lane / 4, columns 2 (lane % 4) and the next).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads8)
     p_when_mm_kernel(const int* __restrict__ flag,
                      const float* __restrict__ tab, float* __restrict__ out) {
-  extern __shared__ __align__(128) float a_s[];  // kM8 x kK8
+  extern __shared__ __align__(128) unsigned char smem8[];
+  float* stage = reinterpret_cast<float*>(smem8);  // 2 x 16 rows, float32
+  __nv_bfloat16* a16 =
+      reinterpret_cast<__nv_bfloat16*>(smem8 + 2 * kRows8);  // 32 x kLd8
+  __shared__ __align__(16) float part[kWarps8][kTile8][kTile8];
   __shared__ __align__(8) uint64_t bar;
-  if (*flag > 0) {
-    if (threadIdx.x == 0) mbar_init(&bar);
+  const int r0 = blockIdx.y * kTile8, c0 = blockIdx.x * kTile8;
+  const bool diag = r0 == c0;
+  const float* a = tab + kM8 * kK8;  // tab[1]
+  if (threadIdx.x == 0) mbar_init(&bar, diag ? 1 : 2);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bulk_load(stage, a + r0 * kK8, kRows8, &bar);
+    if (!diag) bulk_load(stage + kTile8 * kK8, a + c0 * kK8, kRows8, &bar);
+  }
+  const int f = *flag;
+  mbar_wait(&bar, 0);
+  if (f > 0) {
+    const int rows = diag ? kTile8 : 2 * kTile8;
+    for (int q = threadIdx.x; q < rows * kK8 / 4; q += kThreads8) {
+      const int row = q / (kK8 / 4), c4 = q % (kK8 / 4);
+      const float4 v = reinterpret_cast<const float4*>(stage)[q];
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(a16 + row * kLd8 + 4 * c4) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
     __syncthreads();
-    if (threadIdx.x == 0) bulk_load(a_s, tab + kM8 * kK8, kSmem8, &bar);
-    mbar_wait(&bar, 0);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const __nv_bfloat16* arow = a16 + (lane & 15) * kLd8 + (lane >> 4) * 8;
+    const int mat = lane >> 3;
+    const __nv_bfloat16* brow =
+        a16 + ((diag ? 0 : kTile8) + (mat >> 1) * 8 + (lane & 7)) * kLd8 +
+        (mat & 1) * 8;
+    float d[2][4] = {};
+    for (int k0 = warp * (kK8 / kWarps8); k0 < (warp + 1) * (kK8 / kWarps8);
+         k0 += 16) {
+      uint32_t af[4], bf[4];
+      ldmatrix_x4(af, arow + k0);
+      ldmatrix_x4(bf, brow + k0);
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma_bf16(d[0], af, b0);
+      mma_bf16(d[1], af, b1);
+    }
     const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-    float d[kM8 / 8][4] = {};
-    for (int k0 = 0; k0 < kK8; k0 += 16) {
-      const int ka = k0 + 2 * t, kb = ka + 8;
-      const uint32_t a[4] = {bf16_pair(a_s, r0 + g, ka),
-                             bf16_pair(a_s, r0 + g + 8, ka),
-                             bf16_pair(a_s, r0 + g, kb),
-                             bf16_pair(a_s, r0 + g + 8, kb)};
-      for (int j = 0; j < kM8 / 8; ++j) {
-        const uint32_t b[2] = {bf16_pair(a_s, j * 8 + g, ka),
-                               bf16_pair(a_s, j * 8 + g, kb)};
-        mma_bf16(d[j], a, b);
-      }
+    for (int j = 0; j < 2; ++j) {
+      *reinterpret_cast<float2*>(&part[warp][g][j * 8 + 2 * t]) =
+          make_float2(d[j][0], d[j][1]);
+      *reinterpret_cast<float2*>(&part[warp][g + 8][j * 8 + 2 * t]) =
+          make_float2(d[j][2], d[j][3]);
     }
-    for (int j = 0; j < kM8 / 8; ++j) {
-      float* o = out + (r0 + g) * kM8 + j * 8 + 2 * t;
-      *reinterpret_cast<float2*>(o) = make_float2(d[j][0], d[j][1]);
-      *reinterpret_cast<float2*>(o + 8 * kM8) = make_float2(d[j][2], d[j][3]);
+    __syncthreads();
+    const int row = threadIdx.x / (kTile8 / 2);
+    const int col = 2 * (threadIdx.x % (kTile8 / 2));
+    float2 sum = *reinterpret_cast<const float2*>(&part[0][row][col]);
+    for (int w = 1; w < kWarps8; ++w) {
+      const float2 p = *reinterpret_cast<const float2*>(&part[w][row][col]);
+      sum.x += p.x;
+      sum.y += p.y;
     }
-  } else {
-    float4* o = reinterpret_cast<float4*>(out);
-    for (int q = threadIdx.x; q < kM8 * kM8 / 4; q += kThreads)
-      o[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float2*>(out + (r0 + row) * kM8 + c0 + col) = sum;
+  } else if (threadIdx.x < kTile8 * kTile8 / 4) {
+    const int row = threadIdx.x / (kTile8 / 4), c4 = threadIdx.x % (kTile8 / 4);
+    reinterpret_cast<float4*>(out + (r0 + row) * kM8 + c0)[c4] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
 
@@ -534,8 +592,9 @@ extern "C" int p_when_mm_launch(const int* flag, const float* tab, float* out,
   cudaError_t err = cudaFuncSetAttribute(
       p_when_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem8);
   if (err != cudaSuccess) return (int)err;
-  p_when_mm_kernel<<<1, kThreads, kSmem8, as_stream(stream)>>>(flag, tab,
-                                                               out);
+  const dim3 grid(kM8 / kTile8, kM8 / kTile8);
+  p_when_mm_kernel<<<grid, kThreads8, kSmem8, as_stream(stream)>>>(flag, tab,
+                                                                   out);
   return (int)cudaGetLastError();
 }
 

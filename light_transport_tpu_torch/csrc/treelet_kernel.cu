@@ -3,10 +3,11 @@
 // Replaces the TPU kernel `_kernel` of light_transport_tpu/ops/pallas/
 // treelet_kernel.py:204 in both of its modes:
 //   * resume=False (K5, pallas_call at :425): every ray walked from the BVH
-//     root to the end in one launch -> treelet_walk<any_hit, false, ...>;
+//     root to the end in one launch -> treelet_walk32<any_hit>, its own
+//     kernel over 32-byte node records (below, "K5");
 //   * resume=True (K5r, pallas_call at :505): every ray resumed from its
 //     cursor, best_t and best_tri, optionally bounded to `max_loads`
-//     treelets of T nodes -> treelet_walk<any_hit, true, ...>.
+//     treelets of T nodes -> treelet_walk<any_hit, staged>.
 //
 // What it computes.  The stackless roped walk of accel/bvh.roped_walk (the
 // plain PyTorch version): at a node whose box the ray enters (slab test,
@@ -23,9 +24,8 @@
 // contraction (-fmad=false), so the two agree bitwise in t, triangle and
 // per-ray node visits, whatever the schedule below.
 //
-// Design.  One thread walks one ray, in blocks of 256 threads.  K5 (from
-// the root) gathers the 48 bytes it uses of each node's 64-byte record
-// through the read-only cache.  K5r is the TPU design mapped to Hopper:
+// K5r's design.  One thread walks one ray, in blocks of 256 threads; it is
+// the TPU design mapped to Hopper:
 //   * Treelets in shared memory.  A block is a tile of lanes in the order
 //     of `perm`, which the wavefront driver sorts by cursor.  In a bounded
 //     pass (max_loads >= 1) the block stages the treelet of its lowest
@@ -50,7 +50,7 @@
 // Each block adds its node visits, leaf visits, triangle tests, node visits
 // served from shared memory and treelets staged to five counters.
 //
-// What bounds it.  Each node visit reads 48 bytes and each triangle test
+// What bounds K5r.  Each node visit reads 48 bytes and each triangle test
 // 36 bytes at addresses that depend on the ray; in global memory these are
 // dependent loads whose latency, not the card's bandwidth or FP32 rate,
 // sets the time of a launch's slowest ray.  Staging serves the early,
@@ -132,14 +132,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // Moller-Trumbore for one triangle, in the order of accel/bvh._mt_single:
 // cross products as (a_y b_z - a_z b_y, ...), dot products as
 // (x + y) + z.
-__device__ __forceinline__ void mt_single(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          const float* __restrict__ tri,
-                                          float tmin, float& best_t,
-                                          int32_t& best_tri, int32_t id) {
-  const float v0x = __ldg(tri + 0), v0y = __ldg(tri + 1), v0z = __ldg(tri + 2);
-  const float e1x = __ldg(tri + 3), e1y = __ldg(tri + 4), e1z = __ldg(tri + 5);
-  const float e2x = __ldg(tri + 6), e2y = __ldg(tri + 7), e2z = __ldg(tri + 8);
+__device__ __forceinline__ void mt_test(float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        const float (&tri)[9], float tmin,
+                                        float& best_t, int32_t& best_tri,
+                                        int32_t id) {
+  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
+  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
   const float px = dy * e2z - dz * e2y;
   const float py = dz * e2x - dx * e2z;
   const float pz = dx * e2y - dy * e2x;
@@ -161,19 +161,30 @@ __device__ __forceinline__ void mt_single(float ox, float oy, float oz,
   }
 }
 
+__device__ __forceinline__ void mt_single(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          const float* __restrict__ tri,
+                                          float tmin, float& best_t,
+                                          int32_t& best_tri, int32_t id) {
+  float v[9];
+#pragma unroll
+  for (int j = 0; j < 9; ++j) v[j] = __ldg(tri + j);
+  mt_test(ox, oy, oz, dx, dy, dz, v, tmin, best_t, best_tri, id);
+}
+
 struct Params {
   const float* feats;  // (16, n) rows [o, d, 1/d, t_min, t_max, 0...]
   int n;
-  const int64_t* perm;  // K5r: thread i walks lane perm[i]
+  const int64_t* perm;  // thread i walks lane perm[i]
   const float4* node;   // (m, 16) [min3, max3, first, count, skip, 0...]
   const float* leaf;    // (m, leaf_w) [v0, e1, e2] per triangle
   int leaf_w, max_leaf, m, T, max_loads;
-  int32_t* cursor;  // K5r: read and written at the lane
-  float* best_t;    // K5r: read and written at the lane; K5: written
+  int32_t* cursor;  // read and written at the lane
+  float* best_t;    // read and written at the lane
   int32_t* best_tri;
-  int32_t* visits;         // K5r: added to at the lane; K5: written
-  const int32_t* gate_in;  // K5r: return at once when *gate_in == 0
-  int32_t* gate_out;       // K5r: lanes left with cursor < m, added to
+  int32_t* visits;         // added to at the lane
+  const int32_t* gate_in;  // return at once when *gate_in == 0
+  int32_t* gate_out;       // lanes left with cursor < m, added to
   unsigned long long* counts;  // kCounts counters, added to
 };
 
@@ -189,14 +200,14 @@ __device__ __forceinline__ int block_min(int v, int* red) {
   return a;
 }
 
-template <bool kAnyHit, bool kResume, bool kStaged>
+template <bool kAnyHit, bool kStaged>
 __global__ void __launch_bounds__(kBlock) treelet_walk(Params p) {
   extern __shared__ __align__(128) float4 staged[];  // kStaged: T rows
   __shared__ __align__(8) uint64_t bar;
   __shared__ unsigned long long block_counts[kCounts + 1];
   __shared__ int red[kWarps];
   // the gate: a word that every thread reads, so the return is uniform
-  if (kResume && p.gate_in != nullptr && *p.gate_in == 0) return;
+  if (p.gate_in != nullptr && *p.gate_in == 0) return;
   if (threadIdx.x <= kCounts) block_counts[threadIdx.x] = 0;
   if (kStaged && threadIdx.x == 0) mbar_init(&bar);
   __syncthreads();
@@ -204,10 +215,10 @@ __global__ void __launch_bounds__(kBlock) treelet_walk(Params p) {
   const int m = p.m, n = p.n, T = p.T;
   const int i = blockIdx.x * kBlock + threadIdx.x;
   int64_t lane = -1;
-  if (i < n) lane = kResume ? p.perm[i] : i;
+  if (i < n) lane = p.perm[i];
   int32_t cursor = m;
-  if (lane >= 0) cursor = kResume ? p.cursor[lane] : 0;
-  const bool started = cursor < m;  // K5r: lanes finished before stay as are
+  if (lane >= 0) cursor = p.cursor[lane];
+  const bool started = cursor < m;  // lanes finished before stay as are
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float ix = 0.f, iy = 0.f, iz = 0.f, tmin = 0.f, best_t = 0.f;
   int32_t best_tri = -1;
@@ -217,8 +228,8 @@ __global__ void __launch_bounds__(kBlock) treelet_walk(Params p) {
     dx = f[3 * n]; dy = f[4 * n]; dz = f[5 * n];
     ix = f[6 * n]; iy = f[7 * n]; iz = f[8 * n];
     tmin = f[9 * n];
-    best_t = kResume ? p.best_t[lane] : f[10 * n];
-    best_tri = kResume ? p.best_tri[lane] : -1;
+    best_t = p.best_t[lane];
+    best_tri = p.best_tri[lane];
   }
   // the lane's treelet for the max_loads bound: [tbase, tbase + T)
   int tbase = started ? cursor - cursor % T : 0;
@@ -285,24 +296,18 @@ __global__ void __launch_bounds__(kBlock) treelet_walk(Params p) {
     cursor = nxt;
     if (nxt >= m) {
       live = false;
-    } else if (kResume && p.max_loads > 0 &&
+    } else if (p.max_loads > 0 &&
                (unsigned int)(nxt - tbase) >= (unsigned int)T) {
       tbase = nxt - nxt % T;
       if (++loads > p.max_loads) live = false;
     }
   }
 
-  if (kResume) {
-    if (started) {
-      p.cursor[lane] = cursor;
-      p.best_t[lane] = best_t;
-      p.best_tri[lane] = best_tri;
-      p.visits[lane] += (int32_t)n_node;
-    }
-  } else if (lane >= 0) {
+  if (started) {
+    p.cursor[lane] = cursor;
     p.best_t[lane] = best_t;
     p.best_tri[lane] = best_tri;
-    p.visits[lane] = (int32_t)n_node;
+    p.visits[lane] += (int32_t)n_node;
   }
   // per-warp sums into shared memory, one global add per counter per block
   const unsigned int mine[kCounts + 1] = {
@@ -317,15 +322,15 @@ __global__ void __launch_bounds__(kBlock) treelet_walk(Params p) {
   __syncthreads();
   if (threadIdx.x < kCounts && block_counts[threadIdx.x])
     atomicAdd(&p.counts[threadIdx.x], block_counts[threadIdx.x]);
-  if (kResume && p.gate_out != nullptr && threadIdx.x == kCounts &&
+  if (p.gate_out != nullptr && threadIdx.x == kCounts &&
       block_counts[kCounts])
     atomicAdd(p.gate_out, (int32_t)block_counts[kCounts]);
 }
 
-template <bool kAnyHit, bool kResume, bool kStaged>
+template <bool kAnyHit, bool kStaged>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = kStaged ? (size_t)p.T * kRowVecs * sizeof(float4) : 0;
-  auto kernel = treelet_walk<kAnyHit, kResume, kStaged>;
+  auto kernel = treelet_walk<kAnyHit, kStaged>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -341,11 +346,12 @@ bool valid(int max_leaf, int T, int max_loads) {
          (size_t)T * kRowVecs * sizeof(float4) <= 227 * 1024;
 }
 
-// Resident blocks per SM of one instance (nearest hit) at T nodes a treelet.
-template <bool kResume, bool kStaged>
+// Resident blocks per SM of one K5r instance (nearest hit) at T nodes a
+// treelet.
+template <bool kStaged>
 cudaError_t blocks_per_sm(int T, int* out) {
   const size_t smem = kStaged ? (size_t)T * kRowVecs * sizeof(float4) : 0;
-  auto kernel = treelet_walk<false, kResume, kStaged>;
+  auto kernel = treelet_walk<false, kStaged>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
@@ -354,23 +360,178 @@ cudaError_t blocks_per_sm(int T, int* out) {
   return e;
 }
 
+// ---------------------------------------------------------------------------
+// K5: the walk from the root over 32-byte node records
+// ---------------------------------------------------------------------------
+//
+// Replaces the TPU kernel `_kernel` with resume=False
+// (light_transport_tpu/ops/pallas/treelet_kernel.py:204, pallas_call at
+// :425): every ray of the batch walked from the root to the end in one
+// launch.  Since the dispatch sends every big-mesh query through one
+// coherence-sorted launch (ops/dispatch.py), K5 carries the camera grid and
+// the incoherent bounce and shadow rays alike.
+//
+// What bounds it on this card.  A thread walks one ray; each node visit
+// needs the node's record, whose address is known only once the visit
+// before has ended (the cursor moves to node + 1 or to the rope `skip`,
+// read from the record).  So a ray's walk is a chain of dependent loads,
+// and a launch lasts about as long as its slowest rays' chains (hundreds
+// of visits, each a trip to L2 or to HBM; a lone ray takes ~0.31 us a
+// visit on an H100 at 700 W), not as long as its bytes take at the card's
+// bandwidth or its slab tests at its FP32 rate.
+//
+// What the design does about it.
+//   * 32-byte records (accel/bvh.node_records32): [min x y z, max x]
+//     [max y z, skip, first << 3 | count], the box floats the same bits as
+//     the 64-byte fused records, so the slab test is unchanged.  A visit
+//     reads one 32-byte sector instead of 48 bytes over two, and the table
+//     is half the size (84.6 MB on the 4.2M-triangle mesh against 169 MB),
+//     so more of the upper tree stays in the 50 MB L2.
+//   * A leaf's triangles in one go: the first 9 * count floats of its row
+//     in 16-byte loads, all issued before the first test, so a leaf visit
+//     waits one trip for its triangles however many it holds.
+//   * No shared memory and no barrier in the walk: its order, and so every
+//     result, is the plain walk's.  Four counters (node visits, leaf
+//     visits, triangle tests, and visits whose next node is the adjacent
+//     record, cursor + 1) are summed per warp and added once per block.
+// Measured and removed (PERF.md, section 6): holding the record after the
+// cursor (or the three after it) so that a descent would wait for no new
+// load, fetching the rope's target before the box test, and loading a
+// leaf's row before its box test; each was slower on the card.
+
+constexpr int kWalkCounts = 6;  // kCounts' five, then adjacent visits
+constexpr int kAdjacentCount = 5;
+
+struct WalkParams {
+  const float* feats;  // (16, n) rows [o, d, 1/d, t_min, t_max, 0...]
+  int n;
+  const float4* node;  // (m, 8): two float4 a node
+  const float* leaf;   // (m, leaf_w) [v0, e1, e2] per triangle
+  int leaf_w, max_leaf, m;
+  float* best_t;
+  int32_t* best_tri;
+  int32_t* visits;
+  unsigned long long* counts;  // kWalkCounts counters, added to
+};
+
+__device__ __forceinline__ float part(const float4& q, int c) {
+  return c == 0 ? q.x : c == 1 ? q.y : c == 2 ? q.z : q.w;
+}
+
+// The first `count` triangles of a leaf row into v (rows start on a
+// 16-byte boundary: leaf_w is a multiple of 8).
+__device__ __forceinline__ void load_leaf(const float* __restrict__ lrec,
+                                          int count,
+                                          float (&v)[kMaxLeaf][9]) {
+  constexpr int kVecs = (9 * kMaxLeaf + 3) / 4;
+  float4 q[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i)
+    q[i] = 4 * i < 9 * count
+               ? __ldg(reinterpret_cast<const float4*>(lrec) + i)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < kMaxLeaf; ++k)
+#pragma unroll
+    for (int j = 0; j < 9; ++j)
+      v[k][j] = part(q[(9 * k + j) / 4], (9 * k + j) % 4);
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kBlock) treelet_walk32(WalkParams p) {
+  __shared__ unsigned long long block_counts[kWalkCounts];
+  if (threadIdx.x < kWalkCounts) block_counts[threadIdx.x] = 0;
+  __syncthreads();
+  const int m = p.m, n = p.n;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  unsigned int n_node = 0, n_leaf = 0, n_tri = 0, n_adjacent = 0;
+  if (i < n) {
+    const float* f = p.feats + i;
+    const float ox = f[0], oy = f[n], oz = f[2 * n];
+    const float dx = f[3 * n], dy = f[4 * n], dz = f[5 * n];
+    const float ix = f[6 * n], iy = f[7 * n], iz = f[8 * n];
+    const float tmin = f[9 * n];
+    float best_t = f[10 * n];
+    int32_t best_tri = -1;
+    int32_t cursor = 0;
+    while (true) {
+      const float4* rec = p.node + 2 * (size_t)cursor;
+      const float4 a = __ldg(rec);      // min x y z, max x
+      const float4 b = __ldg(rec + 1);  // max y z, skip, first << 3 | count
+      const int32_t skip = __float_as_int(b.z);
+      const int32_t packed = __float_as_int(b.w);
+      const int32_t first = packed >> 3;
+      const int32_t count = min(packed & 7, p.max_leaf);
+      const float t1x = (a.x - ox) * ix, t2x = (a.w - ox) * ix;
+      const float t1y = (a.y - oy) * iy, t2y = (b.x - oy) * iy;
+      const float t1z = (a.z - oz) * iz, t2z = (b.y - oz) * iz;
+      float tn = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
+                       fminf(t1z, t2z));
+      const float tf = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
+                             fmaxf(t1z, t2z));
+      tn = fmaxf(tn, 0.0f);
+      const bool hit_box = tn <= tf && tn <= best_t && tf >= 0.0f;
+      ++n_node;
+      if (hit_box && count > 0) {
+        ++n_leaf;
+        float v[kMaxLeaf][9];
+        load_leaf(p.leaf + (size_t)cursor * p.leaf_w, count, v);
+#pragma unroll
+        for (int k = 0; k < kMaxLeaf; ++k) {
+          if (k >= count) break;
+          ++n_tri;
+          mt_test(ox, oy, oz, dx, dy, dz, v[k], tmin, best_t, best_tri,
+                  first + k);
+        }
+      }
+      int32_t nxt = (hit_box && count == 0) ? cursor + 1 : skip;
+      if (kAnyHit && best_tri >= 0) nxt = m;
+      if (nxt >= m) break;
+      n_adjacent += nxt == cursor + 1;
+      cursor = nxt;
+    }
+    p.best_t[i] = best_t;
+    p.best_tri[i] = best_tri;
+    p.visits[i] = (int32_t)n_node;
+  }
+  const unsigned int mine[4] = {n_node, n_leaf, n_tri, n_adjacent};
+  const int slot[4] = {0, 1, 2, kAdjacentCount};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const unsigned int w = __reduce_add_sync(0xffffffffu, mine[k]);
+    if ((threadIdx.x & 31) == 0 && w)
+      atomicAdd(&block_counts[slot[k]], (unsigned long long)w);
+  }
+  __syncthreads();
+  if (threadIdx.x < kWalkCounts && block_counts[threadIdx.x])
+    atomicAdd(&p.counts[threadIdx.x], block_counts[threadIdx.x]);
+}
+
+template <bool kAnyHit>
+int launch_walk32(const WalkParams& p, cudaStream_t stream) {
+  const int blocks = (p.n + kBlock - 1) / kBlock;
+  treelet_walk32<kAnyHit><<<blocks, kBlock, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K5: every lane from the root; best_t, best_tri and visits written per
-// lane.  counts: kCounts int64 counters, added to.
+// K5: every lane from the root over the 32-byte records `node` (m x 8
+// floats); best_t, best_tri and visits written per lane.  counts:
+// kWalkCounts int64 counters, added to.
 extern "C" int treelet_walk_launch(const float* feats, int n,
                                    const float* node, const float* leaf,
-                                   int leaf_w, int max_leaf, int m, int T,
+                                   int leaf_w, int max_leaf, int m,
                                    int any_hit, float* best_t,
                                    int32_t* best_tri, int32_t* visits,
                                    long long* counts, void* stream) {
-  if (!valid(max_leaf, T, 0)) return (int)cudaErrorInvalidValue;
-  Params p{feats, n, nullptr, reinterpret_cast<const float4*>(node), leaf,
-           leaf_w, max_leaf, m, T, 0, nullptr, best_t, best_tri, visits,
-           nullptr, nullptr, reinterpret_cast<unsigned long long*>(counts)};
+  if (max_leaf < 1 || max_leaf > kMaxLeaf || m < 1)
+    return (int)cudaErrorInvalidValue;
+  WalkParams p{feats, n, reinterpret_cast<const float4*>(node), leaf,
+               leaf_w, max_leaf, m, best_t, best_tri, visits,
+               reinterpret_cast<unsigned long long*>(counts)};
   auto s = (cudaStream_t)stream;
-  return any_hit ? launch<true, false, false>(p, s)
-                 : launch<false, false, false>(p, s);
+  return any_hit ? launch_walk32<true>(p, s) : launch_walk32<false>(p, s);
 }
 
 // K5r: thread i resumes lane perm[i] (int64 ids) and updates its cursor,
@@ -391,19 +552,18 @@ extern "C" int treelet_resume_launch(
            reinterpret_cast<unsigned long long*>(counts)};
   auto s = (cudaStream_t)stream;
   if (max_loads > 0)
-    return any_hit ? launch<true, true, true>(p, s)
-                   : launch<false, true, true>(p, s);
-  return any_hit ? launch<true, true, false>(p, s)
-                 : launch<false, true, false>(p, s);
+    return any_hit ? launch<true, true>(p, s) : launch<false, true>(p, s);
+  return any_hit ? launch<true, false>(p, s) : launch<false, false>(p, s);
 }
 
 // Threads a block, then the resident blocks per SM of K5 and of K5r's
 // bounded (staged) and unbounded passes at T nodes a treelet.
 extern "C" int treelet_blocks_per_sm(int T, int* out) {
   out[0] = kBlock;
-  cudaError_t e = blocks_per_sm<false, false>(T, &out[1]);
-  if (e == cudaSuccess) e = blocks_per_sm<true, true>(T, &out[2]);
-  if (e == cudaSuccess) e = blocks_per_sm<true, false>(T, &out[3]);
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], treelet_walk32<false>, kBlock, 0);
+  if (e == cudaSuccess) e = blocks_per_sm<true>(T, &out[2]);
+  if (e == cudaSuccess) e = blocks_per_sm<false>(T, &out[3]);
   return (int)e;
 }
 

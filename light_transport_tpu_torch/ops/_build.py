@@ -105,7 +105,7 @@ def load_intersect_kernel() -> ctypes.CDLL:
 def bind_treelet_kernel(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the treelet library's C functions on ``lib``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.treelet_walk_launch.argtypes = [vp, i, vp, vp] + [i] * 5 + [vp] * 5
+    lib.treelet_walk_launch.argtypes = [vp, i, vp, vp] + [i] * 4 + [vp] * 5
     lib.treelet_walk_launch.restype = ctypes.c_int
     lib.treelet_resume_launch.argtypes = ([vp, i, vp, vp, vp] + [i] * 6
                                           + [vp] * 8)

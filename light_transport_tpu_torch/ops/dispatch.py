@@ -12,17 +12,24 @@ package's triangle thresholds:
 * past ``MXU_MAX_TRIS`` every query of a scene with a BVH walks it through
   the treelet kernels of ``ops.treelet_kernel`` (K5 and K5r for tensors on
   the card, the plain roped walk of ``accel.bvh`` for CPU tensors).  With
-  treelet tables (``Scene.with_treelet``), coherent camera rays
-  (``coherent=True``) take one sorted K5 launch and all other rays the
-  wavefront driver on K5r.  Without tables (``with_bvh(treelet=False)``,
-  JAX's XLA-walk route) every query takes one K5 launch over the BVH's
-  records, and coherent camera rays go to the cluster intersector, as in
-  JAX.  A big mesh without a BVH goes to the brute force on the CPU and
-  raises on the card.
+  treelet tables (``Scene.with_treelet``) every query, the camera grid and
+  the bounce and shadow rays alike, takes one K5 launch behind the
+  coherence sort (``ops.raysort.sorted_apply``).  ``TREELET_WAVEFRONT =
+  True`` restores JAX's route, which sends all but the camera rays through
+  the wavefront driver on K5r.  On an NVIDIA H100 80GB HBM3 (700 W power
+  limit) the single launch won: the 4.2M-triangle render of
+  ``chip_smoke.py`` phase 12 (256x256x2, depth 3), routes in turns, was
+  busy 7.74-7.77 ms on the device against 13.90-13.91 ms, with 2,764
+  launches against 3,335 and the same 27 host syncs, and bitwise the same
+  image (PERF.md, section 6).  Without tables
+  (``with_bvh(treelet=False)``, JAX's XLA-walk route) every query takes
+  one K5 launch over the BVH's records, and coherent camera rays go to
+  the cluster intersector, as in JAX.  A big mesh without a BVH goes to
+  the brute force on the CPU and raises on the card.
 
-The thresholds and the wavefront's schedule were tuned on a TPU and have
-not been measured on the card.  Inactive lanes (``active``) get an empty
-ray interval on every path but the brute force and report no hit.
+The other thresholds and the wavefront's schedule were tuned on a TPU and
+have not been measured on the card.  Inactive lanes (``active``) get an
+empty ray interval on every path but the brute force and report no hit.
 
 Not ported yet (ROADMAP): the watertight test; ``scene_transmittance``
 (transmittance shadows).
@@ -40,9 +47,11 @@ from light_transport_tpu_torch.ops import intersect
 MXU_MAX_TRIS = 1_048_576
 # at or below this many triangles the plain brute force is cheapest
 SMALL_MESH_TRIS = 48
-# the treelet schedule of JAX's dispatch: wavefront for incoherent rays,
-# one treelet per pass, 12 bounded passes before the unbounded one
-TREELET_WAVEFRONT = True
+# the route of big-mesh bounce and shadow rays: one sorted K5 launch
+# (False, measured faster on the card) or JAX's wavefront on K5r (True),
+# whose schedule is one treelet per pass, 12 bounded passes before the
+# unbounded one
+TREELET_WAVEFRONT = False
 WAVEFRONT_LOADS_PER_PASS = 1
 WAVEFRONT_MAX_PASSES = 12
 

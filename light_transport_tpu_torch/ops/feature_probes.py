@@ -18,8 +18,10 @@ P5  p_red_dma               a block minimum as the bulk copy's index
 P6  p_red_smem_dma          the same through a ``__shared__`` scalar
 P7  p_onehot                a bf16 one-hot gather on the tensor cores
                             (``mma.sync``), exact through a 3-chunk split
-P8  p_when_mm               a device flag, a 128 KiB bulk copy into opt-in
-                            dynamic shared memory, a bf16 ``mma`` product
+P8  p_when_mm               a device flag, bulk copies into opt-in
+                            dynamic shared memory (64 blocks, each the
+                            rows of its 16 x 16 output tile), bf16 once,
+                            ``ldmatrix`` fragments, ``mma`` products
 P9  p_reshape_8x128         an (8, 128) -> (1, 1024) relayout through
                             shared memory
 P10 p_packed_pair_flush     a 2-D histogram by a bf16 hi/lo one-hot

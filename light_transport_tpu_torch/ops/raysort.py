@@ -31,13 +31,16 @@ def _spread3_8(x: torch.Tensor) -> torch.Tensor:
 
 
 def scene_bounds(mesh):
-    """(lo, hi) box of a TriangleMesh, padded by 0.1."""
-    v0 = mesh.v0
-    v1 = v0 + mesh.e1
-    v2 = v0 + mesh.e2
-    lo = torch.minimum(torch.minimum(v0, v1), v2).amin(dim=0) - 0.1
-    hi = torch.maximum(torch.maximum(v0, v1), v2).amax(dim=0) + 0.1
-    return lo, hi
+    """(lo, hi) box of a TriangleMesh, padded by 0.1; computed once per
+    mesh and kept in ``mesh.derived``."""
+    if "bounds" not in mesh.derived:
+        v0 = mesh.v0
+        v1 = v0 + mesh.e1
+        v2 = v0 + mesh.e2
+        lo = torch.minimum(torch.minimum(v0, v1), v2).amin(dim=0) - 0.1
+        hi = torch.maximum(torch.maximum(v0, v1), v2).amax(dim=0) + 0.1
+        mesh.derived["bounds"] = (lo, hi)
+    return mesh.derived["bounds"]
 
 
 def ray_sort_key(origins, directions, lo, hi, inactive=None):

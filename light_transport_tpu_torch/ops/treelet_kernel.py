@@ -9,8 +9,11 @@ ascending order; the wavefront driver sorts the lanes by cursor between
 bounded launches so that the lanes of a block walk the same treelets.
 
 * **Tables.** :class:`TreeletTables` is the kernels' operand: the BVH's
-  own float32 node and leaf records (the same tensors, not copied) and the
-  treelet size ``T``.  The TPU kernel padded the records to whole treelets
+  own float32 node and leaf records (the same tensors, not copied), the
+  treelet size ``T``, and the BVH's 32-byte node records that K5 reads
+  (``accel.bvh.node_records32``, built with the BVH: half the bytes of
+  the 64-byte rows, 84.6 MB on the 4.2M-triangle big mesh).
+  The TPU kernel padded the records to whole treelets
   and split every value into three bf16 chunks so that its one-hot matmul
   could gather them exactly; on the card a treelet is ``T`` contiguous
   64-byte rows of the node records, copied as they are into shared memory
@@ -18,17 +21,19 @@ bounded launches so that the lanes of a block walk the same treelets.
   :func:`build_treelet_tables` keeps JAX's limits and errors (node count
   and ``first + k`` below 2^24, ``max_leaf`` at most 4), so both packages
   accept the same scenes.
-* **Kernels** (``csrc/treelet_kernel.cu``, one template; one thread per
-  ray): K5 (``treelet_walk``) walks every lane from the root in one
-  launch; K5r (``treelet_resume``) resumes the lanes from their cursor,
+* **Kernels** (``csrc/treelet_kernel.cu``; one thread per ray): K5
+  (``treelet_walk``, its own kernel) walks every lane from the root in one
+  launch over the 32-byte records, a leaf's triangles read in 16-byte
+  loads all at once; K5r (``treelet_resume``)
+  resumes the lanes from their cursor,
   ``best_t`` and ``best_tri`` and, with ``max_loads > 0``, stops a lane
   when it would enter treelet number ``max_loads + 1`` of the launch.
   K5r's thread ``i`` walks lane ``perm[i]`` and updates the :class:`Lanes`
   state in place; in a bounded pass a block stages the treelet of its
   lowest live cursor in shared memory by TMA; a launch can be gated on a
-  device word.  The plain
-  version of both is ``accel.bvh.roped_walk`` (K5r's through ``perm``);
-  they do the same arithmetic in the same order, so they agree bitwise.
+  device word.  The plain version of both is ``accel.bvh.roped_walk``
+  (K5's over the 32-byte records, K5r's through ``perm``); they do the
+  same arithmetic in the same order, so they agree bitwise.
 * **Drivers.** :func:`intersect_bvh_treelet` (one K5 launch),
   :func:`intersect_bvh_treelet_wavefront` (``max_passes`` sorted K5r passes
   of ``loads_per_pass`` treelets, then one unbounded K5r pass, each gated
@@ -72,10 +77,12 @@ LAUNCHES = {"treelet_walk": 0, "treelet_resume": 0}
 class TreeletTables:
     """A BVH's fused records cut into treelets of ``T`` nodes: ``node``
     (M, 16) and ``leaf`` (M, W) float32, ``W = accel.bvh.leaf_width(
-    max_leaf)``, the BVH's own tensors."""
+    max_leaf)``, and ``node32`` (M, 8), the same nodes in 32-byte records
+    (``accel.bvh.node_records32``): the BVH's own tensors."""
 
     node: torch.Tensor
     leaf: torch.Tensor
+    node32: torch.Tensor
     T: int = DEFAULT_T
     num_nodes: int = 0
     max_leaf: int = 4
@@ -83,7 +90,8 @@ class TreeletTables:
     @staticmethod
     def of(bvh, T: int = DEFAULT_T) -> "TreeletTables":
         """The kernels' view of ``bvh`` (``accel.bvh.BVH``), unchecked."""
-        return TreeletTables(node=bvh.node_rec, leaf=bvh.leaf_rec, T=T,
+        return TreeletTables(node=bvh.node_rec, leaf=bvh.leaf_rec,
+                             node32=bvh.node32, T=T,
                              num_nodes=bvh.num_nodes, max_leaf=bvh.max_leaf)
 
     @property
@@ -197,10 +205,10 @@ def treelet_resume_reference(feats, tables: TreeletTables, perm,
 
 def treelet_walk_reference(feats, tables: TreeletTables, any_hit=False):
     """Plain version of K5: ``(best_t, best_tri, visits)`` of the walk
-    from the root."""
+    from the root, reading the 32-byte records as the kernel does."""
     lanes = Lanes.start(feats)
     _, best_t, best_tri, visits = bvh_mod.roped_walk(
-        tables.node, tables.leaf, tables.num_nodes, tables.max_leaf,
+        tables.node32, tables.leaf, tables.num_nodes, tables.max_leaf,
         feats[0:3].T, feats[3:6].T, feats[6:9].T, feats[9], lanes.cursor,
         lanes.best_t, lanes.best_tri, any_hit=any_hit, T=tables.T)
     return best_t, best_tri, visits
@@ -210,8 +218,9 @@ def treelet_walk_reference(feats, tables: TreeletTables, any_hit=False):
 # kernel wrappers
 # --------------------------------------------------------------------------
 
-N_COUNTS = 5  # node visits, leaf visits, triangle tests, node visits from
-# shared memory, treelets staged
+N_COUNTS = 6  # node visits, leaf visits, triangle tests, node visits from
+# shared memory and treelets staged (K5r), node visits whose next node is
+# the adjacent record, cursor + 1 (K5)
 
 
 def _check(t: torch.Tensor, dtype, shape, name: str, device):
@@ -237,10 +246,12 @@ def _operands(feats, tables, counts):
            (m, bvh_mod.leaf_width(tables.max_leaf)), "leaf table", dev)
     if not 1 <= tables.max_leaf <= MAX_LEAF:
         raise ValueError(f"max_leaf {tables.max_leaf} outside 1..{MAX_LEAF}")
-    if tables.node.data_ptr() % 16:
-        raise ValueError("node table: the kernels read float4 and copy "
-                         "treelets by TMA, so it must start on a 16-byte "
-                         "boundary")
+    _check(tables.node32, torch.float32, (m, 8), "32-byte node table", dev)
+    if (tables.node.data_ptr() % 16 or tables.node32.data_ptr() % 16
+            or tables.leaf.data_ptr() % 16):
+        raise ValueError("node and leaf tables: the kernels read float4 and "
+                         "copy treelets by TMA, so they must start on a "
+                         "16-byte boundary")
     if counts is None:
         counts = torch.zeros((N_COUNTS,), dtype=torch.int64, device=dev)
     _check(counts, torch.int64, (N_COUNTS,), "counts", dev)
@@ -274,10 +285,10 @@ def _launch_walk(feats, tables, any_hit, counts):
     if n:
         lib = load_treelet_kernel()
         rc = lib.treelet_walk_launch(
-            _ptr(feats), n, _ptr(tables.node), _ptr(tables.leaf),
+            _ptr(feats), n, _ptr(tables.node32), _ptr(tables.leaf),
             tables.leaf.shape[1], tables.max_leaf, tables.num_nodes,
-            tables.T, int(any_hit), _ptr(best_t), _ptr(best_tri),
-            _ptr(visits), _ptr(counts), _stream(feats.device))
+            int(any_hit), _ptr(best_t), _ptr(best_tri), _ptr(visits),
+            _ptr(counts), _stream(feats.device))
         _raise_on(lib, rc, "treelet_walk")
         LAUNCHES["treelet_walk"] += 1
     return best_t, best_tri, visits

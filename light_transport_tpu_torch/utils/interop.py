@@ -24,7 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from light_transport_tpu_torch.accel.bvh import BVH, _compute_skip
+from light_transport_tpu_torch.accel.bvh import (
+    BVH,
+    _compute_skip,
+    node_records32,
+)
 from light_transport_tpu_torch.ops.intersect import Hit
 from light_transport_tpu_torch.ops.photon_kernel import KernelState
 from light_transport_tpu_torch.scene.geometry import MESH_FIELDS, TriangleMesh
@@ -144,6 +148,7 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         # the leaf record holds 8 * ceil(9 * max_leaf / 8) floats, which is
         # 8 * (max_leaf + 1) for max_leaf <= 8
         bvh = BVH(**b, skip=torch.from_numpy(skip).to(device),
+                  node32=node_records32(b["node_rec"]),
                   max_leaf=b["leaf_rec"].shape[1] // 8 - 1)
     scene = Scene(
         mesh=TriangleMesh(**_tensors(d["mesh"], MESH_FIELDS, device)),

@@ -115,9 +115,9 @@ def device_split(fn):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             cat = cs.kernel_category(e.key)
-            if cat == "K5r":  # by staging mode, where the template has one
+            if cat == "K5r":  # by staging mode, the template's last flag
                 args = e.key.split("treelet_walk<")[1].split(">")[0]
-                cat += "".join(args.split(",")[2:]).strip()
+                cat += " " + args.split(",")[-1].strip()
             ms, c = out.get(cat, (0.0, 0))
             out[cat] = (ms + e.self_device_time_total / 1e3, c + e.count)
     return out
