@@ -81,7 +81,23 @@ script exits non-zero without the final result line):
      beside an empty kernel launched the same way, the plain version and,
      where one exists, a single PyTorch call of the same function; P8
      also on a seeded random table, within a stated tolerance, and timed
-     beside the cast to bf16 and the matmul together
+     beside the cast to bf16 and the matmul together; P9's device time
+     beside repeat's and an empty kernel's, the floor no launch beats
+ 14. the photon leftovers: phase 6's main path killed at 64 blocks with a
+     snapshot every 2nd chunk (utils/checkpoint, in a temporary directory
+     the phase removes) and resumed to the end, its counters bitwise and
+     its grids within 2^-16 of each bin of phase 6's (float atomics add in
+     the card's order; an unbroken rerun is logged beside it); the
+     snapshot's bytes and ms a save (device -> host copy, then write);
+     steady steps/s with a snapshot every 16th chunk and without, in
+     turns; simulate_resumable at 1e6 photons in 10 batches broken after
+     4 and resumed, bitwise the unbroken run; the 18 hg_sweep
+     configurations through simulate_kernel at 1e5 photons (exact
+     launches, energy within 1e-4, the albedo-0.9 g = 0 cell against van
+     de Hulst's 0.41550, the six g = 0 cells against the superstep engine
+     within their combined 3 sigma); a superstep of the superstep engine
+     at the sweep's lanes (host time, device time, launches); the phase's
+     wall time
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -94,9 +110,11 @@ import functools
 from concurrent.futures import ThreadPoolExecutor
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -114,6 +132,7 @@ from light_transport_tpu_torch.integrators import path_tracer as pt
 from light_transport_tpu_torch.models.presets import (
     full_scale,
     glass_scene,
+    hg_sweep,
     multilayer_mismatch,
 )
 from light_transport_tpu_torch.accel import bvh as bvh_mod
@@ -148,15 +167,22 @@ from light_transport_tpu_torch.tally.stats import (
     mc_parity_3sigma,
 )
 from light_transport_tpu_torch.tally.tallies import PhotonTallies
+from light_transport_tpu_torch.transport.photon import (
+    run_fixed_steps,
+    simulate_photons,
+)
+from light_transport_tpu_torch.utils import checkpoint as ckpt
 
 DEV = torch.device("cuda", 0)
 TILE = pk.TILE_LANES
 # full_scale's recorded physics (1e8 photons, artifacts/full_scale_run.json)
 FULL_SCALE_RD = 0.26239074
 FULL_SCALE_N = 100_000_000
-MAIN_LANES = 1 << 19  # the main path's lanes (phases 3, 6 and 7)
+MAIN_LANES = 1 << 19  # the main path's lanes (phases 3, 6, 7 and 14)
+MAIN_N = 10_000_000  # the main path's photons (phases 6 and 14)
 GRIDS = ("absorb_rz", "detector_xy", "absorb_xyz", "refl_r", "trans_r")
-# NVIDIA's H100 SXM data sheet: FP32 on the CUDA cores, HBM3 bandwidth
+# NVIDIA's H100 SXM data sheet: FP32 on the CUDA cores (an FMA counted as
+# two operations), HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12  # dense, on the tensor cores
@@ -183,6 +209,11 @@ H100_SMS = 132
 H100_CLOCK = 1.98e9
 PEAK_IMUL = 64 * H100_SMS * H100_CLOCK
 PEAK_SFU = 16 * H100_SMS * H100_CLOCK
+# one FP32 instruction per lane per clock, 128 lanes an SM (33.4e12/s): the
+# peak for counts that take every add, multiply, min/max and compare as one
+# operation.  Every kernel builds with -fmad=false, so none of those is an
+# FMA, and the data sheet's PEAK_FP32 counts an FMA as two
+PEAK_FP32_ISSUE = 128 * H100_SMS * H100_CLOCK
 # operations per ray-triangle pair of the intersector: 22 multiplies, 16
 # adds, one divide and six compares (csrc/intersect_kernel.cu)
 PAIR_OPS = 45
@@ -428,8 +459,10 @@ def phase5():
 
 
 def phase6():
+    """The photon main path; returns its kernel launches, timings and
+    tallies (phase 14 holds its resumed run against them)."""
     m, cfg = full_scale(DEV)
-    n = 10_000_000
+    n = MAIN_N
     cfg = dataclasses.replace(cfg, n_photons=n)
     timings = {}
     pk.LAUNCHES = 0
@@ -469,7 +502,7 @@ def phase6():
     check(abs(vol / float(t.absorbed) - 1.0) < 0.01, "volume vs absorbed")
     check(finite, "non-finite tally")
     check(launches > 0, "the main path launched no kernel")
-    return launches, timings
+    return launches, timings, t
 
 
 def phase7():
@@ -630,7 +663,7 @@ def k1_bound(split):
     by = max(terms, key=terms.get)
     terms["by"] = by
     bound = (terms[by], "bytes" if by == "bytes" else "operations")
-    old = bound_ms(steps * K1_OLD_OPS_PER_STEP, nbytes)[0]
+    old = bound_ms(steps * K1_OLD_OPS_PER_STEP, nbytes, PEAK_FP32)[0]
     return bound, old, terms
 
 
@@ -638,10 +671,10 @@ def k1_bound(split):
 # phases 8-10: the render slice
 # --------------------------------------------------------------------------
 
-def bound_ms(ops, nbytes, peak=PEAK_FP32):
+def bound_ms(ops, nbytes, peak=PEAK_FP32_ISSUE):
     """(least time in ms, what bounds it) for ``ops`` operations at
-    ``peak`` per second (FP32 unless given) and ``nbytes`` moved, at the
-    card's published peaks."""
+    ``peak`` per second (FP32 instructions unless given) and ``nbytes``
+    moved, at the card's published peaks."""
     t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -833,14 +866,15 @@ class Recorder:
             held[any_hit] = (args, ms_p, err)
         args, ms_p, err = held[False]
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
-        return ms, ms_p, self.bound(args), int(self.count_pairs(args)), err
+        return (ms, ms_p, self.bound(args), int(self.count_pairs(args)), err,
+                self.bound(args, PEAK_FP32)[0])
 
-    def bound(self, args):
+    def bound(self, args, peak=PEAK_FP32_ISSUE):
         """The bound of one launch on ``args``: its admitted pairs'
         operations (and for K3 its cull's slab tests, every ray against
-        every box) or its operands' bytes: the rays' features and
-        intervals, the records, K3's boxes or K4's id lists, and a key a
-        ray."""
+        every box) at ``peak`` or its operands' bytes: the rays' features
+        and intervals, the records, K3's boxes or K4's id lists, and a key
+        a ray."""
         feats, recs = args[0], args[2]
         ops = int(self.count_pairs(args)) * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS
         if self.name == "intersect_dense":
@@ -848,7 +882,7 @@ class Recorder:
         lists = sum(x.numel() * x.element_size() for x in args[3:-1])
         nbytes = (feats.numel() * 4 + args[1].numel() * 4
                   + recs.numel() * 4 + lists + feats.shape[0] * 8)
-        return bound_ms(ops, nbytes)
+        return bound_ms(ops, nbytes, peak)
 
     def mean_bound(self):
         """The bound averaged over every launch the recorder saw."""
@@ -920,17 +954,18 @@ class CullRecorder:
         got = launch_counted(self.name, self.wrapped, args)
         ms_p = self.hold("tile_cull, heaviest launch of the run", args, got)
         ms = cuda_ms(lambda: self.wrapped(*args), 5)
-        return ms, ms_p, self.bound(args, got)
+        return ms, ms_p, self.bound(args, got), self.bound(args, got,
+                                                           PEAK_FP32)[0]
 
     @staticmethod
-    def bound(args, got):
-        """Each ray's slab test against every box, or the bytes: each
-        ray's origin, direction and interval, the boxes, the admitted ids
-        and the counts."""
+    def bound(args, got, peak=PEAK_FP32_ISSUE):
+        """Each ray's slab test against every box at ``peak``, or the
+        bytes: each ray's origin, direction and interval, the boxes, the
+        admitted ids and the counts."""
         feats, c_lo = args[0], args[2]
         n, c = feats.shape[0], c_lo.shape[0]
         nbytes = n * 8 * 4 + c * 6 * 4 + int(got[1].sum()) * 4 + n // 128 * 4
-        return bound_ms(n * c * CULL_OPS, nbytes)
+        return bound_ms(n * c * CULL_OPS, nbytes, peak)
 
     def mean_bound(self):
         return sum(self.bound(a, g)[0] for a, g in self.launched) / max(
@@ -1858,6 +1893,7 @@ class TreeletRecorder:
         nodes, leaves, tris, smem, staged, adjacent = counts[k]
         rays = args[0].shape[1]
         bound = self.bound(counts[k], rays)
+        old = self.bound(counts[k], rays, PEAK_FP32)[0]
         mode = "any hit" if args[5 if self.resume else 2] else "nearest"
         log(12, f"{self.name}, heaviest launch of the render ({mode}, "
                 f"{rays} rays, {nodes} node visits ({smem} from shared "
@@ -1865,7 +1901,8 @@ class TreeletRecorder:
                 f"visits, "
                 f"{tris} triangle tests, {staged} treelets staged): bitwise "
                 f"equal to the plain walk; kernel {ms:.4f} ms, plain "
-                f"{ms_p:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                f"{ms_p:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}; at the "
+                f"data sheet's FP32 rate {old:.4f} ms)")
         if not self.resume:
             self.k5_diagnostic(args, counts[k], int(want[3].max()), ms)
         return ms, ms_p, bound, counts[k], err
@@ -1925,13 +1962,13 @@ class TreeletRecorder:
         return cuda_ms_each(setup, lambda: self.wrapped(
             feats, tables, perm, work, ml, any_hit, (g_in, out)), reps)
 
-    def bound(self, counts, rays):
+    def bound(self, counts, rays, peak=PEAK_FP32_ISSUE):
         """The bound of one launch from its node visits and triangle tests
-        and its rays."""
+        (at ``peak``) and its rays."""
         nodes, _, tris = counts[:3]
         return bound_ms(nodes * NODE_OPS + tris * TRI_OPS,
                         nodes * NODE_BYTES[self.name] + tris * TRI_BYTES
-                        + rays * RAY_BYTES[self.name])
+                        + rays * RAY_BYTES[self.name], peak)
 
     def mean_bound(self):
         """The bound averaged over every launch the recorder saw."""
@@ -2164,27 +2201,28 @@ def probe_work(name, args):
     nb = [a.numel() * a.element_size() for a in args]
     if name == "p_while":
         n = max(int(args[0][0, 0]), 0)
-        return n * (n + 1) // 2, PEAK_FP32, nb[0] + out
+        return n * (n + 1) // 2, PEAK_FP32_ISSUE, nb[0] + out
     if name == "p_while_vec_carry":
         steps = max(10 - int(args[0].to(torch.int32).min()), 0)
-        return 2 * steps * args[0].numel(), PEAK_FP32, nb[0] + out
+        return 2 * steps * args[0].numel(), PEAK_FP32_ISSUE, nb[0] + out
     if name == "p_dma_smem":
-        return 0, PEAK_FP32, nb[0] + nb[1] // args[1].shape[0] + out
+        return 0, PEAK_FP32_ISSUE, nb[0] + nb[1] // args[1].shape[0] + out
     if name == "p_red_when":
-        return args[0].numel(), PEAK_FP32, nb[0] + out
+        return args[0].numel(), PEAK_FP32_ISSUE, nb[0] + out
     if name in ("p_red_dma", "p_red_smem_dma"):
-        return (args[0].numel(), PEAK_FP32,
+        return (args[0].numel(), PEAK_FP32_ISSUE,
                 nb[0] + nb[1] // args[1].shape[0] + out)
     if name == "p_onehot":  # the three chunk rows, two adds per column
-        return 2 * args[0].numel(), PEAK_FP32, nb[0] + 3 * nb[1] // 128 + out
+        return (2 * args[0].numel(), PEAK_FP32_ISSUE,
+                nb[0] + 3 * nb[1] // 128 + out)
     if name == "p_when_mm":
         if int(args[0][0]) <= 0:
-            return 0, PEAK_FP32, nb[0] + out
+            return 0, PEAK_FP32_ISSUE, nb[0] + out
         return 2 * 128 * 128 * 256, PEAK_BF16, nb[0] + nb[1] // 2 + out
     if name == "p_reshape_8x128":
-        return 0, PEAK_FP32, nb[0] + out
+        return 0, PEAK_FP32_ISSUE, nb[0] + out
     if name == "p_packed_pair_flush":  # two bin adds a record, one a bin
-        return 2 * args[2].numel() + out // 4, PEAK_FP32, sum(nb) + out
+        return 2 * args[2].numel() + out // 4, PEAK_FP32_ISSUE, sum(nb) + out
     raise KeyError(name)
 
 
@@ -2274,6 +2312,12 @@ def phase13():
                     f"{probe_device_ms(pair):.5f} ms; by CUDA events: "
                     f"kernel {ms:.5f}, matmul {lib_ms:.5f}, cast then "
                     f"matmul {cuda_ms(pair, PROBE_REPS):.5f} ms")
+        if name == "p_reshape_8x128":  # the floor no launch beats, beside
+            floor = probe_device_ms(lambda: fp.empty_launch(DEV))
+            log(13, f"p_reshape_8x128 beside its yardsticks, device time a "
+                    f"call under the profiler: kernel {dev_ms:.5f} ms, "
+                    f"repeat {lib_dev:.5f} ms, empty kernel {floor:.5f} ms "
+                    f"(kernel / repeat {dev_ms / lib_dev:.3f})")
         log(13, f"{name}: kernel {same} its plain version (max abs err "
                 f"{err:.3e}); kernel {ms:.5f} ms a launch by CUDA events over"
                 f" {PROBE_REPS} launches, an empty kernel launched the same "
@@ -2342,6 +2386,273 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
             "bound_by": bound[1], "library_ms": library_ms}
 
 
+# --------------------------------------------------------------------------
+# phase 14: checkpoints and the HG sweep
+# --------------------------------------------------------------------------
+
+# the main path killed at this many blocks, snapshotting every 2nd chunk
+KILL_BLOCKS = 64
+HG_N = 100_000
+VAN_DE_HULST_RD = 0.41550
+
+
+@contextlib.contextmanager
+def timed_saves(record):
+    """Route ``simulate_kernel``'s snapshots through a wrapper that appends
+    each save's host-clock seconds to ``record``."""
+    save = ckpt.save_kernel_checkpoint
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        record.append((time.perf_counter() - t0, args))
+
+    ckpt.save_kernel_checkpoint = timed
+    try:
+        yield
+    finally:
+        ckpt.save_kernel_checkpoint = save
+
+
+class Killed(Exception):
+    """Stands for a run killed after a snapshot."""
+
+
+@contextlib.contextmanager
+def killed_after(batches):
+    """Make ``simulate_resumable`` raise Killed once the snapshot of
+    ``batches`` finished batches is written."""
+    save = ckpt.save_tallies
+
+    def save_then_die(path, tallies, seed, batches_done):
+        save(path, tallies, seed, batches_done)
+        if batches_done == batches:
+            raise Killed
+
+    ckpt.save_tallies = save_then_die
+    try:
+        yield
+    finally:
+        ckpt.save_tallies = save
+
+
+def differing_fields(a, b):
+    """Fields of two tallies that are not bitwise equal."""
+    return [f.name for f in dataclasses.fields(a)
+            if not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+# a resumed run's grids against an unbroken run's: the float atomics add
+# each bin's deposits in the card's order, which changes from run to run
+# (two unbroken runs differ by about an ulp of their hottest bins); a
+# block lost or replayed moves a hot bin by ~1/150 of itself
+RESUME_GRID_RTOL = 2.0 ** -16
+
+
+def grid_diffs(a, b):
+    """{grid: (bitwise-equal share of bins, max abs difference, max
+    difference relative to the larger of the two bins)}."""
+    out = {}
+    for g in GRIDS:
+        x, y = getattr(a, g).double(), getattr(b, g).double()
+        d = (x - y).abs()
+        rel = d / torch.maximum(x.abs(), y.abs()).clamp_min(1e-300)
+        out[g] = (float((x == y).double().mean()), float(d.max()),
+                  float(rel.max()))
+    return out
+
+
+def phase14_resume(t6, t6_timings, tmp):
+    """The main path killed at KILL_BLOCKS blocks (a snapshot every 2nd
+    chunk), then resumed to the end: counters and grids against phase 6's
+    run; the snapshot's bytes and cost; steady steps/s with a snapshot
+    every 16th chunk beside runs without, in turns."""
+    m, cfg = full_scale(DEV)
+    cfg = dataclasses.replace(cfg, n_photons=MAIN_N)
+    kw = dict(seed=0, lanes=MAIN_LANES, device=DEV)
+    path = os.path.join(tmp, "full_scale.npz")
+    path16 = os.path.join(tmp, "every16.npz")
+    saves = []
+    t0 = time.perf_counter()
+    with timed_saves(saves):
+        part = pk.simulate_kernel(m, cfg, max_blocks=KILL_BLOCKS,
+                                  checkpoint_path=path, checkpoint_every=2,
+                                  **kw)
+        n_killed = len(saves)
+        pk.LAUNCHES = 0
+        got = pk.simulate_kernel(m, cfg, checkpoint_path=path,
+                                 checkpoint_every=2, **kw)
+        resumed_launches = pk.LAUNCHES
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    check(part.n_launched < MAIN_N, "the killed run was not cut short")
+    check(n_killed == KILL_BLOCKS // (2 * 4),  # chunks of 4 blocks
+          f"{n_killed} snapshots before the kill")
+    # the snapshot's two parts, on the last save's operands
+    args = saves[-1][1]
+    copy_s, write_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        arrays = ckpt.kernel_snapshot(*args[1:])
+        t2 = time.perf_counter()
+        ckpt.write_snapshot(os.path.join(tmp, "timed.npz"), arrays)
+        copy_s.append(t2 - t1)
+        write_s.append(time.perf_counter() - t2)
+    per_save = [s for s, _ in saves]
+    log(14, f"full_scale 1e7 killed at {KILL_BLOCKS} blocks (launched "
+            f"{part.n_launched}, {n_killed} snapshots), resumed to the end "
+            f"({resumed_launches} launches, {len(saves) - n_killed} "
+            f"snapshots): launched {got.n_launched}, steps {got.n_steps} "
+            f"(phase 6: {t6.n_launched}, {t6.n_steps}); {wall:.2f} s for "
+            f"both; snapshot {nbytes} bytes, {1e3 * min(per_save):.1f}-"
+            f"{1e3 * max(per_save):.1f} ms a save ({len(saves)} saves), of "
+            f"which device -> host copy {1e3 * min(copy_s):.1f}-"
+            f"{1e3 * max(copy_s):.1f} ms and write "
+            f"{1e3 * min(write_s):.1f}-{1e3 * max(write_s):.1f} ms")
+    # turns: without snapshots, a snapshot every 16th chunk, twice each
+    rates, reruns = {}, []
+    for every in (None, 16, 16, None):
+        timings, saves16 = {}, []
+        with timed_saves(saves16):
+            t = pk.simulate_kernel(
+                m, cfg, timings=timings,
+                checkpoint_path=path16 if every else None,
+                checkpoint_every=every or 16, **kw)
+        if every is None:
+            reruns.append(t)
+        elif saves16:  # the next turn starts anew
+            os.remove(path16)
+        check(not set(differing_fields(t, t6)) - set(GRIDS),
+              "an unbroken rerun's counters differ from phase 6's")
+        rates.setdefault(every, []).append(
+            (timings["steady_steps_per_sec"], len(saves16)))
+    log(14, f"steady steps/s (snapshots a run): phase 6 without snapshots "
+            f"{t6_timings['steady_steps_per_sec']:.4e}; in turns without "
+            f"{[f'{r:.4e}' for r, _ in rates[None]]}, every 16th chunk "
+            f"{[f'{r:.4e} ({n})' for r, n in rates[16]]}")
+    # counters bitwise; the grids to RESUME_GRID_RTOL a bin
+    counters = ("launched", "steps", "specular", "absorbed")
+    differ = differing_fields(got, t6)
+    check(not set(differ) & set(counters), f"resumed counters differ: "
+                                           f"{differ}")
+    d_res, d_run = grid_diffs(got, t6), grid_diffs(reruns[0], t6)
+    log(14, f"resumed against phase 6, per grid (bitwise-equal share of "
+            f"bins, max abs difference, max relative): {d_res}; an unbroken "
+            f"rerun against phase 6: {d_run}")
+    for g in GRIDS:
+        check(d_res[g][2] <= RESUME_GRID_RTOL,
+              f"{g}: the resumed run differs from phase 6's by "
+              f"{d_res[g][2]:.3e} of a bin (an unbroken rerun by "
+              f"{d_run[g][2]:.3e})")
+
+
+def phase14_resumable(tmp):
+    """``simulate_resumable`` at 1e6 photons in 10 batches, interrupted
+    after 4 and resumed, against an unbroken run, on the MCML slab (its
+    photons leave within tens of steps, and the superstep engine's
+    supersteps cost host time: four-step rounds)."""
+    m = LayeredMedium.build([MediumConfig(mu_a=10.0, mu_s=90.0, g=0.75,
+                                          n=1.0, thickness=0.02)],
+                            device=DEV)
+    cfg = PhotonRunConfig(n_photons=1_000_000, nr=50, nz=50, dr=0.002,
+                          dz=0.002, steps_per_batch=4)
+    kw = dict(seed=3, n_batches=10, lanes=1 << 17)
+    t0 = time.perf_counter()
+    full = ckpt.simulate_resumable(m, cfg,
+                                   checkpoint_path=os.path.join(tmp, "a"),
+                                   **kw)
+    t_full = time.perf_counter() - t0
+    path = os.path.join(tmp, "b")
+    try:
+        with killed_after(4):
+            ckpt.simulate_resumable(m, cfg, checkpoint_path=path, **kw)
+        check(False, "simulate_resumable was not interrupted")
+    except Killed:
+        pass
+    _, _, done = ckpt.load_tallies(path, DEV)
+    resumed = ckpt.simulate_resumable(m, cfg, checkpoint_path=path, **kw)
+    differ = differing_fields(resumed, full)
+    n = cfg.n_photons
+    r, tt = full.total_reflectance(), full.total_transmittance()
+    log(14, f"simulate_resumable 1e6 in 10 batches: unbroken {t_full:.2f} s, "
+            f"interrupted after {done} and resumed: fields not bitwise equal "
+            f"{differ}; launched {resumed.n_launched}, R {r:.5f} (0.09739), "
+            f"T {tt:.5f} (0.66096), energy {full.energy_total():.8f}", t0)
+    check(done == 4, f"the interrupted run saved {done} batches")
+    check(differ == [], f"resumed differs from unbroken in {differ}")
+    check(full.n_launched == n, "launch count")
+    check(mc_parity_3sigma(r, 0.09739, binomial_stderr(0.09739, n),
+                           abs_floor=1e-3), f"MCML slab R {r}")
+    check(mc_parity_3sigma(tt, 0.66096, binomial_stderr(0.66096, n),
+                           abs_floor=2e-3), f"MCML slab T {tt}")
+
+
+def phase14_hg_sweep():
+    """Each of the 18 hg_sweep configurations through ``simulate_kernel``
+    at 1e5 photons: exact launches, energy closed; the albedo-0.9 g = 0
+    cell against van de Hulst; the g = 0 cells against the superstep
+    engine at the same count."""
+    t0 = time.perf_counter()
+    rows = []
+    for i, (label, m, cfg) in enumerate(hg_sweep(device=DEV)):
+        cfg = dataclasses.replace(cfg, n_photons=HG_N)
+        t1 = time.perf_counter()
+        t = pk.simulate_kernel(m, cfg, seed=100 + i, device=DEV)
+        rd = t.total_reflectance()
+        row = f"{label}: R_d {rd:.5f}, energy {t.energy_total():.8f}, " \
+              f"{time.perf_counter() - t1:.2f} s"
+        check(t.n_launched == HG_N, f"{label}: launched {t.n_launched}")
+        check(abs(t.energy_total() - 1.0) < 1e-4,
+              f"{label}: energy {t.energy_total()}")
+        if float(m.g[0]) == 0.0:
+            t1 = time.perf_counter()
+            s = simulate_photons(m, cfg, 200 + i, lanes=1 << 17, device=DEV)
+            rs = s.total_reflectance()
+            se = math.hypot(binomial_stderr(rd, HG_N),
+                            binomial_stderr(rs, HG_N))
+            row += f"; superstep R_d {rs:.5f} (3 sigma {3 * se:.5f}, " \
+                   f"{time.perf_counter() - t1:.2f} s)"
+            check(s.n_launched == HG_N, f"{label}: superstep launches")
+            check(mc_parity_3sigma(rd, rs, se),
+                  f"{label}: kernel R_d {rd} vs superstep {rs}")
+            if float(m.mu_a[0]) == 10.0 and float(m.mu_s[0]) == 90.0:
+                se_v = binomial_stderr(VAN_DE_HULST_RD, HG_N)
+                row += f"; van de Hulst {VAN_DE_HULST_RD}"
+                check(mc_parity_3sigma(rd, VAN_DE_HULST_RD, se_v,
+                                       abs_floor=1e-3),
+                      f"{label}: R_d {rd} vs van de Hulst")
+        rows.append(row)
+        log(14, "hg_sweep " + row)
+    log(14, f"hg_sweep: {len(rows)} configurations", t0)
+    check(len(rows) == 18, f"hg_sweep gave {len(rows)} configurations")
+    # what a superstep of the plain engine costs at the sweep's lanes: the
+    # long-lived cells' tails take thousands of them
+    steps = 50
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run_fixed_steps(m, cfg, 1, HG_N, steps, device=DEV)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t1) / steps * 1e3
+    busy, launches, _ = device_profile(
+        lambda: run_fixed_steps(m, cfg, 1, HG_N, steps, device=DEV))
+    log(14, f"superstep engine, {HG_N} lanes: {host:.3f} ms a superstep by "
+            f"the host clock, {busy / steps:.3f} ms of device time and "
+            f"{launches / steps:.0f} kernel launches a superstep")
+
+
+def phase14(t6, t6_timings):
+    """The photon leftovers on the card: checkpointed runs and the HG
+    sweep."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lt_ckpt_") as tmp:
+        phase14_resume(t6, t6_timings, tmp)
+        phase14_resumable(tmp)
+    phase14_hg_sweep()
+    log(14, "phase 14 wall time", t0)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2364,7 +2675,7 @@ def main():
     max_err = phase3()
     phase4()
     phase5()
-    launches, _ = phase6()
+    launches, t6_timings, t6 = phase6()
     ms, plain_ms, bound, old_bound = phase7()
     log_gap("photon_block", launches, ms, bound[0])
     log_gap("photon_block (old bound)", launches, ms, old_bound)
@@ -2387,19 +2698,22 @@ def main():
              "light_transport_tpu/ops/pallas/intersect_kernel.py:67"),
             (k4, k4_launches["intersect_gather"],
              "light_transport_tpu/ops/pallas/intersect_kernel.py:129")):
-        ms, plain_ms, bound, pairs, err = rec.kernel_and_plain()
+        ms, plain_ms, bound, pairs, err, old = rec.kernel_and_plain()
         log(10, f"{rec.name} on its heaviest nearest-hit launch ({pairs} "
                 f"pairs): kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+                f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}; at "
+                f"the data sheet's FP32 rate, an FMA counted as two, "
+                f"{old:.4f} ms)")
         entries.append(kernel_entry(
             rec.name, "light_transport_tpu_torch/csrc/intersect_kernel.cu",
             replaces, launched, err, ms, plain_ms, bound))
         log_gap(rec.name, launched, rec.summary()[1], rec.mean_bound())
     log_gap("intersect_dense (profiler)", k3_launches, k3_prof_ms,
             k3.mean_bound())
-    ms, plain_ms, bound = cull.kernel_and_plain()
+    ms, plain_ms, bound, old = cull.kernel_and_plain()
     log(10, f"tile_cull on its heaviest query: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}; at the "
+            f"data sheet's FP32 rate {old:.4f} ms)")
     # not a TPU kernel: it replaces the XLA cull in front of K4
     entries.append(kernel_entry(
         "tile_cull", "light_transport_tpu_torch/csrc/intersect_kernel.cu",
@@ -2435,6 +2749,7 @@ def main():
         log_gap(f"{rec.name} (profiler)", k5_launches[rec.name],
                 prof_ms[rec.name], rec.mean_bound())
     entries += phase13()
+    phase14(t6, t6_timings)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

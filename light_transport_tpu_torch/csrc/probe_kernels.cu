@@ -11,11 +11,12 @@
 // staging of a cluster's weights or a treelet, tensor-core histogram
 // flushes in place of atomics, lockstep walks of a ray tile.
 //
-// Every kernel but P8 runs as one block of 256 threads (8 warps).  At
-// these sizes (4 KiB to 192 KiB moved) a launch costs more than the work,
-// so what bounds each probe on the card is the launch; the kernels are
-// written to be right and to show the mechanism plainly, not to be fast.
-// P8 is split over 64 blocks of 4 warps (see there).
+// Every kernel but P8 and P9 runs as one block of 256 threads (8 warps).
+// At these sizes (4 KiB to 192 KiB moved) a launch costs more than the
+// work, so what bounds each probe on the card is the launch; the kernels
+// are written to be right and to show the mechanism plainly, not to be
+// fast.  P8 is split over 64 blocks of 4 warps, P9 over 8 blocks of 256
+// threads (see there).
 //
 // Every launch function returns cudaGetLastError() after its launch.  A
 // table index outside the table traps (as torch's device-side index
@@ -433,23 +434,21 @@ __global__ void __launch_bounds__(kThreads8)
 }
 
 // ---------------------------------------------------------------------------
-// P9 p_reshape_8x128 (:300): (8, 128) -> (1, 1024), broadcast to (8, 1024).
-// Thread i loads the float4 at (sublane i % 8, lanes 4(i / 8)..+3), the
-// TPU's sublane-major order, into the flat row in shared memory; after the
-// barrier thread i reads the flat row's float4 i and stores it, in
-// 16-byte stores, to all eight output rows.
+// P9 p_reshape_8x128 (:300): (8, 128) -> (1, 1024), broadcast to (8, 1024),
+// so out[r, :] = x.reshape(-1).  On a row-major array the TPU's sublane-
+// major relayout is the identity (flat index s * 128 + l is both the read
+// and the write), so nothing is staged: block r writes output row r, and
+// its thread i loads x's float4 i through the read-only path and stores it
+// in one 16-byte store.  36 KB moved bound it at ~1e-5 ms, far below a
+// launch; what the card spends is one load's latency and the launch.
+// Eight blocks of one store a thread beat one block of eight stores a
+// thread on an H100 (scripts/time_p9_grids.py; PERF.md).
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kThreads)
     p_reshape_8x128_kernel(const float* __restrict__ x,
                            float* __restrict__ out) {
-  __shared__ __align__(16) float flat[kSlice];
-  const int s = threadIdx.x % 8, l4 = threadIdx.x / 8;
-  reinterpret_cast<float4*>(flat)[s * 32 + l4] =
-      reinterpret_cast<const float4*>(x)[s * 32 + l4];
-  __syncthreads();
-  const float4 v = reinterpret_cast<const float4*>(flat)[threadIdx.x];
-  for (int r = 0; r < 8; ++r)
-    reinterpret_cast<float4*>(out)[r * (kSlice / 4) + threadIdx.x] = v;
+  const float4 v = __ldg(reinterpret_cast<const float4*>(x) + threadIdx.x);
+  reinterpret_cast<float4*>(out)[blockIdx.x * (kSlice / 4) + threadIdx.x] = v;
 }
 
 // ---------------------------------------------------------------------------
@@ -600,7 +599,7 @@ extern "C" int p_when_mm_launch(const int* flag, const float* tab, float* out,
 
 extern "C" int p_reshape_8x128_launch(const float* x, float* out,
                                       void* stream) {
-  p_reshape_8x128_kernel<<<1, kThreads, 0, as_stream(stream)>>>(x, out);
+  p_reshape_8x128_kernel<<<8, kThreads, 0, as_stream(stream)>>>(x, out);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,22 @@ def demo_homogeneous(device="cuda"):
     return medium, cfg
 
 
+def hg_sweep(g_values=(0.0, 0.5, 0.9), mu_a_values=(0.1, 1.0, 10.0),
+             mu_s_values=(10.0, 90.0), device="cuda"):
+    """Anisotropic Henyey-Greenstein sweep in a semi-infinite, index-matched
+    medium, 1e5 photons a configuration.  Yields ``(label, medium, cfg)``
+    triples, g slowest and mu_s fastest."""
+    for g in g_values:
+        for mu_a in mu_a_values:
+            for mu_s in mu_s_values:
+                medium = LayeredMedium.build(
+                    [MediumConfig(mu_a=mu_a, mu_s=mu_s, g=g, n=1.0)],
+                    device=device)
+                cfg = PhotonRunConfig(n_photons=100_000, nr=64, nz=64,
+                                      dr=0.02, dz=0.02)
+                yield f"g={g}_mua={mu_a}_mus={mu_s}", medium, cfg
+
+
 def multilayer_mismatch(device="cuda"):
     """Layered slab with refractive-index mismatch (Fresnel/TIR at the
     interfaces, layered fluence depth profile)."""

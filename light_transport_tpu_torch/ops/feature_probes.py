@@ -22,8 +22,8 @@ P8  p_when_mm               a device flag, bulk copies into opt-in
                             dynamic shared memory (64 blocks, each the
                             rows of its 16 x 16 output tile), bf16 once,
                             ``ldmatrix`` fragments, ``mma`` products
-P9  p_reshape_8x128         an (8, 128) -> (1, 1024) relayout through
-                            shared memory
+P9  p_reshape_8x128         an (8, 128) -> (1, 1024) relayout broadcast
+                            to 8 rows: read-only loads, a block a row
 P10 p_packed_pair_flush     a 2-D histogram by a bf16 hi/lo one-hot
                             contraction on the tensor cores (K2's flush)
 ==  ======================  ============================================

@@ -719,6 +719,12 @@ def bench_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
     return tallies
 
 
+def _medium_table(medium: LayeredMedium) -> tuple:
+    """The medium's layer table as exact Python floats."""
+    return tuple((f.name, getattr(medium, f.name).detach().cpu().tolist())
+                 for f in dataclasses.fields(medium))
+
+
 def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
                     lanes: int = 1 << 17,
                     max_blocks: int = 200_000,
@@ -727,6 +733,8 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
                     timings: dict = None,
                     tile_lanes: int = TILE_LANES,
                     uniforms=None,
+                    checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 16,
                     device=None) -> PhotonTallies:
     """Unbiased run of ``cfg.n_photons`` through per-tile launch quotas.
 
@@ -737,8 +745,25 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
     that replaces the generator (tests use it to feed both packages the
     same numbers).  ``timings`` receives the steady-state keys of the JAX
     engine (compile_plus_first_chunk_s, steady_s, steady_steps,
-    steady_steps_per_sec, steady_blocks, steady_occupancy, ms_per_block).
+    steady_steps_per_sec, steady_blocks, steady_occupancy, ms_per_block),
+    counted from the end of this call's first chunk.
+
+    ``checkpoint_path``: after every ``checkpoint_every``-th chunk that
+    leaves work to do, the lane state, tallies, quota, next block index
+    and seed are snapshotted there (``utils/checkpoint``), at the
+    termination check's own read-back.  A run stopped after some chunks
+    (killed, or bounded by ``max_blocks``) and called again with the same
+    arguments resumes from its last snapshot and gives the counters and
+    tallies of an unbroken run.  A snapshot of another seed, lane count,
+    ``k_steps``, ``chunk_blocks``, ``tile_lanes``, config, medium or
+    device type is ignored and the run starts over.  ``uniforms`` cannot
+    be checkpointed (a function has no fingerprint).
     """
+    if checkpoint_path is not None and uniforms is not None:
+        raise ValueError("checkpoint_path with uniforms=: a uniforms "
+                         "function cannot be fingerprinted")
+    if checkpoint_every < 1:
+        raise ValueError(f"checkpoint_every={checkpoint_every} must be >= 1")
     lanes = min(lanes, max(tile_lanes,
                            (cfg.n_photons // tile_lanes) * tile_lanes))
     eng = PhotonKernelEngine(medium, cfg, lanes, bench_mode=False,
@@ -754,6 +779,18 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
     quota = torch.as_tensor(quota_h, device=dev)
     state = eng.zero_state()
     tallies = PhotonTallies.zeros(cfg, dev)
+    start = 0
+    if checkpoint_path is not None:
+        from light_transport_tpu_torch.utils import checkpoint as ckpt
+
+        # everything the resumed streams, shapes and physics depend on
+        fingerprint = (f"kernel-v1|dev={dev.type}|seed={seed}|lanes={lanes}"
+                       f"|k={eng.k_steps}|cb={chunk_blocks}|tile={tile_lanes}"
+                       f"|cfg={cfg}|medium={_medium_table(medium)}")
+        loaded = ckpt.load_kernel_checkpoint(checkpoint_path, fingerprint,
+                                             dev)
+        if loaded is not None:
+            state, tallies, quota, start = loaded
 
     def sync():
         if dev.type == "cuda":
@@ -761,8 +798,9 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
 
     t0 = time.perf_counter()
     t1 = s1 = None
-    c1 = blocks = 0
-    for c in range(0, max_blocks, chunk_blocks):
+    c1 = blocks = start
+    chunks = 0
+    for c in range(start, max_blocks, chunk_blocks):
         for b in range(c, min(c + chunk_blocks, max_blocks)):
             bs = block_seed(seed, b)
             u = (None if uniforms is None
@@ -771,6 +809,7 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
             quota = eng.accumulate(tallies, counters)
             blocks = b + 1
         more = bool((quota > 0).any() | (state.w > 0.0).any())  # syncs
+        chunks += 1
         if t1 is None:
             sync()
             t1 = time.perf_counter()
@@ -778,6 +817,9 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
             c1 = blocks
         if not more:
             break
+        if checkpoint_path is not None and chunks % checkpoint_every == 0:
+            ckpt.save_kernel_checkpoint(checkpoint_path, state, tallies,
+                                        quota, blocks, seed, fingerprint)
     if timings is not None and t1 is not None:
         sync()
         t_end = time.perf_counter()

@@ -144,6 +144,7 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.models.presets\n"
         "import light_transport_tpu_torch.tally.stats\n"
         "import light_transport_tpu_torch.utils.interop\n"
+        "import light_transport_tpu_torch.utils.checkpoint\n"
         "import light_transport_tpu_torch.accel.bvh\n"
         "import light_transport_tpu_torch.accel.native\n"
         "import light_transport_tpu_torch.core.math\n"
