@@ -98,6 +98,24 @@ script exits non-zero without the final result line):
      within their combined 3 sigma); a superstep of the superstep engine
      at the sweep's lanes (host time, device time, launches); the phase's
      wall time
+ 15. the sharded runs and the split Fresnel tracer (parallel/mesh.py,
+     fresnel_mode="split"), each where its scene or run is at hand:
+     after phase 10, render_sharded of the soft-shadow scene at 1 and 2
+     shards (15d: bitwise phase 10's image at one shard, within JAX's
+     2e-5 at two, launches of the cull kernel and K4 counted), the split
+     tracer on the glass preset (15e: the card through K3 against the CPU
+     through the plain versions from uniforms drawn once on the CPU, its
+     mean radiance against the stochastic tracer's on the same lanes,
+     iterations, K3 launches, host syncs and walls) and
+     render_progressive in both Fresnel modes against a render of four
+     times the samples regrouped into passes (15f); after phase 12,
+     render_sharded of the big mesh (15d, K5 launches counted); after
+     phase 14, phase 6's run through simulate_pallas_sharded in a
+     one-rank NCCL group (15a: K1 launches counted, counters bitwise
+     phase 6's, grids within 2^-16 of each bin beside an unbroken rerun,
+     steady steps/s beside phase 6's), over two virtual shards on the
+     card (15b: R_d within 3 sigma of phase 6's) and simulate_sharded
+     (the superstep engine) over two shards against phase 5 (15c)
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -112,6 +130,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -143,6 +162,7 @@ from light_transport_tpu_torch.ops import intersect_kernel as ik
 from light_transport_tpu_torch.ops import photon_kernel as pk
 from light_transport_tpu_torch.ops import raysort
 from light_transport_tpu_torch.ops import treelet_kernel as tk
+from light_transport_tpu_torch.parallel import mesh as pm
 from light_transport_tpu_torch.scene.cornell import (
     cornell_box_scene,
     sphere_triangles,
@@ -456,6 +476,7 @@ def phase5():
     check(chi2 / max(dof, 1) < 1.5, f"chi2/dof {chi2 / max(dof, 1)}")
     check(r_ok, "R_d parity")
     check(t_k.n_launched == n and t_x.n_launched == n, "launch counts")
+    return m, cfg, t_x
 
 
 def phase6():
@@ -1376,7 +1397,7 @@ def phase10(scene):
     cull.hold_every("soft-shadow render")
     sweep_chunk(rec)
     profile_render(scene, cfg, wall2, show=("tile_cull",))
-    return launches, rec, cull, (wall1, wall2)
+    return launches, rec, cull, img
 
 
 def sweep_chunk(rec):
@@ -2158,7 +2179,7 @@ def phase12(scene, cfg):
                    "treelet_resume": wave_launches["treelet_resume"]}
     k5_recs = (recs["single"]["treelet_walk"],
                recs["wavefront"]["treelet_resume"])
-    return k5_launches, k5_recs, prof_ms
+    return k5_launches, k5_recs, prof_ms, img
 
 
 def kernel_category(key):
@@ -2653,6 +2674,244 @@ def phase14(t6, t6_timings):
     log(14, "phase 14 wall time", t0)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the sharded runs and the split Fresnel tracer
+# --------------------------------------------------------------------------
+
+SPLIT_PASSES = 4
+# JAX's own tolerance for a sharded render (tests/test_sharding.py:60)
+SHARDED_ATOL = 2e-5
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def counters_equal(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("launched", "steps", "specular", "absorbed"))
+
+
+def phase15_photon(t5, t6, t6_timings, launches6):
+    """15a: the photon main path through simulate_pallas_sharded in a
+    one-rank NCCL group, against phase 6's run; 15b: the same run over two
+    virtual shards on the card; 15c: simulate_sharded (the superstep
+    engine) over two shards against phase 5's run."""
+    m, cfg = full_scale(DEV)
+    n = MAIN_N
+    cfg = dataclasses.replace(cfg, n_photons=n)
+    t0 = time.perf_counter()
+    mesh = pm.init_multihost(f"localhost:{free_port()}", 1, 0)
+    log("15a", f"init_multihost: one-rank {torch.distributed.get_backend()} "
+               f"group, mesh {mesh.n_shards} shard on {mesh.devices[0]} "
+               f"[{smi()}]", t0)
+    timings = {}
+    pk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    t = pm.simulate_pallas_sharded(m, cfg, seed=0, mesh=mesh,
+                                   lanes_per_device=MAIN_LANES,
+                                   timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = pk.LAUNCHES
+    rerun = pk.simulate_kernel(m, cfg, seed=0, lanes=MAIN_LANES, device=DEV)
+    d_sh, d_run = grid_diffs(t, t6), grid_diffs(rerun, t6)
+    log("15a", f"sharded K1, 1 shard: launched {t.n_launched}, steps "
+               f"{t.n_steps}, kernel launches {launches} (phase 6 "
+               f"{launches6}), counters bitwise phase 6's "
+               f"{counters_equal(t, t6)}; steady "
+               f"{timings['steady_steps_per_sec']:.4e} steps/s (phase 6 "
+               f"{t6_timings['steady_steps_per_sec']:.4e}), "
+               f"{timings['ms_per_block']:.3f} ms/block, wall {wall:.2f} s "
+               f"[{smi()}]")
+    log("15a", f"against phase 6, per grid (bitwise-equal share, max abs, "
+               f"max rel): {d_sh}; an unbroken simulate_kernel rerun "
+               f"against phase 6: {d_run}")
+    check(t.n_launched == n, f"15a launched {t.n_launched}")
+    check(launches > 0, "15a: the sharded run launched no K1")
+    check(counters_equal(t, t6), "15a: counters differ from phase 6's")
+    check(launches == launches6, "15a: not phase 6's kernel launches")
+    for g, (_, _, rel) in d_sh.items():
+        check(rel <= RESUME_GRID_RTOL,
+              f"15a {g}: {rel} of a bin from phase 6's")
+    rd6 = t6.total_reflectance()
+    se = binomial_stderr(rd6, n) * math.sqrt(2.0)
+    timings = {}
+    pk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    t2 = pm.simulate_pallas_sharded(m, cfg, seed=0, mesh=pm.make_mesh(2),
+                                    lanes_per_device=MAIN_LANES,
+                                    timings=timings)
+    torch.cuda.synchronize()
+    log("15b", f"sharded K1, 2 virtual shards on the card: launched "
+               f"{t2.n_launched}, kernel launches {pk.LAUNCHES}, R_d "
+               f"{t2.total_reflectance():.6f} (phase 6 {rd6:.6f}, 3 sigma "
+               f"{3 * se:.6f}), energy {t2.energy_total():.8f}, steady "
+               f"{timings['steady_steps_per_sec']:.4e} steps/s [{smi()}]",
+        t0)
+    check(t2.n_launched == n, f"15b launched {t2.n_launched}")
+    check(pk.LAUNCHES > 0, "15b: no K1 launched")
+    check(mc_parity_3sigma(t2.total_reflectance(), rd6, se),
+          f"15b R_d {t2.total_reflectance()}")
+    m5, cfg5, tx5 = t5
+    n5 = cfg5.n_photons
+    t0 = time.perf_counter()
+    tx = pm.simulate_sharded(m5, cfg5, seed=13, mesh=pm.make_mesh(2))
+    torch.cuda.synchronize()
+    rd5 = tx5.total_reflectance()
+    se5 = binomial_stderr(rd5, n5) * math.sqrt(2.0)
+    log("15c", f"simulate_sharded (superstep engine) 2e5 over 2 shards: "
+               f"launched {tx.n_launched}, R_d {tx.total_reflectance():.5f} "
+               f"(phase 5 {rd5:.5f}, 3 sigma {3 * se5:.5f}), energy "
+               f"{tx.energy_total():.6f} [{smi()}]", t0)
+    check(tx.n_launched == n5, f"15c launched {tx.n_launched}")
+    check(mc_parity_3sigma(tx.total_reflectance(), rd5, se5, abs_floor=1e-3),
+          f"15c R_d {tx.total_reflectance()}")
+    torch.distributed.destroy_process_group()
+
+
+def phase15_render(label, scene, cfg, ref, counts, names):
+    """15d: render_sharded at 1 and 2 shards, two calls each, against the
+    main path's render_image (``ref``): bitwise at one shard, within JAX's
+    2e-5 at two; the first call's kernel launches counted from 0
+    (``counts`` is the module's LAUNCHES, ``names`` the kernels that must
+    launch)."""
+    for k in (1, 2):
+        for name in counts:
+            counts[name] = 0
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = pm.render_sharded(scene, cfg, seed=0, mesh=pm.make_mesh(k))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if len(walls) == 1:
+                launched = dict(counts)
+        err = float((img - ref).abs().max())
+        same = bool(torch.equal(img, ref))
+        log("15d", f"{label} render_sharded at {k} shard(s): bitwise "
+                   f"render_image {same}, max abs diff {err:.3g}, launches "
+                   f"{launched}, first call {walls[0]:.4f} s, second "
+                   f"{walls[1]:.4f} s [{smi()}]")
+        for name in names:
+            check(launched[name] > 0, f"15d {label}, {k}: no {name} launch")
+        if k == 1:
+            check(same, f"15d {label}: one shard not bitwise render_image")
+        check(err <= SHARDED_ATOL, f"15d {label}, {k} shards: {err}")
+
+
+def pass_images(samples, k):
+    """A render's (H, W, k * spp, 3) samples regrouped into k passes of spp
+    samples: the k pass images (k, H, W, 3), each clipped to [0, 1] as a
+    render clips its image (render_progressive's estimator)."""
+    h, w, n, _ = samples.shape
+    return samples.reshape(h, w, k, n // k, 3).mean(3).clamp(0, 1).permute(
+        2, 0, 1, 3)
+
+
+def passes_stderr(imgs):
+    """Standard error of the mean of k pass images' average (k, H, W, 3):
+    each pixel's spread over the passes, pixels independent."""
+    x = imgs.double().mean(dim=-1)
+    return math.sqrt(float(x.var(dim=0).sum()) / x.shape[0]) / x[0].numel()
+
+
+def phase15_split(glass):
+    """15e: the split tracer on the glass preset, the card (K3) against
+    the CPU (plain versions) from uniforms drawn once on the CPU, and its
+    image mean against the stochastic render's; 15f: render_progressive,
+    stochastic and split, against a render of SPLIT_PASSES times the
+    samples."""
+    scene, cfg = glass
+    scene_cpu, _ = glass_scene(device="cpu")
+    split_cfg = dataclasses.replace(cfg, fresnel_mode="split")
+    o, d, u = pt._camera_lanes(scene_cpu, cfg, pt._generator(scene_cpu, 7))
+    ik.LAUNCHES["intersect_dense"] = 0
+    stats = {}
+    t0 = time.perf_counter()
+    rad = pt.trace_paths_split(scene, cfg, o.to(DEV), d.to(DEV), u.to(DEV),
+                               stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = ik.LAUNCHES["intersect_dense"]
+    t0 = time.perf_counter()
+    rad_cpu = pt.trace_paths_split(scene_cpu, cfg, o, d, u)
+    cpu_s = time.perf_counter() - t0
+    rad_st = pt.trace_paths(scene, cfg, o.to(DEV), d.to(DEV), u.to(DEV))[0]
+    rad, rad_st = rad.cpu(), rad_st.cpu()
+    close = torch.isclose(rad, rad_cpu, rtol=1e-3, atol=1e-6).all(dim=1)
+    frac = float(close.float().mean())
+    img, img_st = pt._to_image(rad, cfg)[0], pt._to_image(rad_st, cfg)[0]
+    img_err = float((img - pt._to_image(rad_cpu, cfg)[0]).abs().mean())
+    log("15e", f"split tracer, glass {cfg.width}x{cfg.height}x{cfg.spp} "
+               f"depth {cfg.max_depth}: {stats['iterations']} iterations, "
+               f"K3 launches {k3}, card {wall:.3f} s, CPU (plain) "
+               f"{cpu_s:.2f} s; card against CPU: {frac:.5f} of lanes "
+               f"within rtol 1e-3, mean abs image diff {img_err:.3g} "
+               f"[{smi()}]")
+    check(k3 > 0, "15e: the split tracer launched no K3")
+    check(frac >= 0.99, f"15e: {frac} of lanes agree with the CPU")
+    check(img_err < 2e-3, f"15e: mean abs image diff {img_err}")
+    # both estimators have the same mean before the image's [0, 1] clip;
+    # after it the split's lower variance loses less to the clip, so the
+    # clipped means are logged and the unclipped ones held, lane by lane
+    # on the same uniforms
+    diff = (rad - rad_st).double().mean(dim=1)
+    se = float(diff.std()) / math.sqrt(diff.numel())
+    se_img = passes_stderr(pass_images(pt._to_image(rad_st, cfg)[1],
+                                       cfg.spp))
+    log("15e", f"mean radiance before the clip: split "
+               f"{float(rad.double().mean()):.5f}, stochastic "
+               f"{float(rad_st.double().mean()):.5f}, paired difference "
+               f"{float(diff.mean()):.5f} (standard error {se:.5f}); "
+               f"clipped image means {float(img.mean()):.5f} and "
+               f"{float(img_st.mean()):.5f} (standard error {se_img:.6f})")
+    check(bool(torch.isfinite(img).all()), "15e: split image not finite")
+    check(abs(float(diff.mean())) < 4 * se,
+          f"15e: split against stochastic {float(diff.mean())} +- {se}")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.render_image_split(scene, split_cfg, seed=3)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    syncs = count_syncs(lambda: lt.render(scene, split_cfg, seed=3))
+    log("15e", f"render_image_split: first call {walls[0]:.4f} s, second "
+               f"{walls[1]:.4f} s, host syncs a render {syncs} [{smi()}]")
+    wide = dataclasses.replace(cfg, spp=cfg.spp * SPLIT_PASSES)
+    ow, dw, uw = pt._camera_lanes(scene, wide, pt._generator(scene, 11))
+    for c in (cfg, split_cfg):
+        if c.fresnel_mode == "split":
+            rad_w = pt.trace_paths_split(scene, wide, ow, dw, uw)
+        else:
+            rad_w = pt.trace_paths(scene, wide, ow, dw, uw)[0]
+        ref_img, samples = pt._to_image(rad_w, wide)
+        ref = pass_images(samples, SPLIT_PASSES)
+        se = passes_stderr(ref) * math.sqrt(2.0)
+        ik.LAUNCHES["intersect_dense"] = 0
+        t0 = time.perf_counter()
+        prog = pt.render_progressive(scene, c, seed=12,
+                                     n_passes=SPLIT_PASSES)
+        torch.cuda.synchronize()
+        k3 = ik.LAUNCHES["intersect_dense"]
+        mean, want = float(prog.mean()), float(ref.mean())
+        log("15f", f"render_progressive, {SPLIT_PASSES} passes, "
+                   f"{c.fresnel_mode}: K3 launches {k3}, mean {mean:.5f} "
+                   f"against a {wide.spp}-spp render's {want:.5f} in "
+                   f"{SPLIT_PASSES} "
+                   f"passes (combined standard error {se:.6f}; clipped as "
+                   f"one image {float(ref_img.mean()):.5f}) [{smi()}]", t0)
+        check(k3 > 0, "15f: the progressive render launched no K3")
+        check(bool(torch.isfinite(prog).all()), "15f: not finite")
+        check(float(prog.min()) >= 0.0 and float(prog.max()) <= 1.0,
+              "15f: outside [0, 1]")
+        check(abs(mean - want) < 4 * se, f"15f {c.fresnel_mode}: mean {mean}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2674,7 +2933,7 @@ def main():
             print(report.read_text().strip(), flush=True)
     max_err = phase3()
     phase4()
-    phase5()
+    t5 = phase5()
     launches, t6_timings, t6 = phase6()
     ms, plain_ms, bound, old_bound = phase7()
     log_gap("photon_block", launches, ms, bound[0])
@@ -2688,7 +2947,10 @@ def main():
            f"{soft.mesh.num_triangles}", t0)
     mid_recs = phase8(glass, mid, soft)
     k3_launches, k3, k3_prof_ms = phase9(glass, mid, mid_recs)
-    k4_launches, k4, cull, _ = phase10(soft)
+    k4_launches, k4, cull, img10 = phase10(soft)
+    phase15_render("soft shadow", soft, SOFT_SHADOW_CFG, img10, ik.LAUNCHES,
+                   ("tile_cull", "intersect_gather"))
+    phase15_split(glass)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -2737,7 +2999,9 @@ def main():
           and tab.node32 is scene.bvh.node32,
           "the treelet tables copied the BVH's records")
     phase11(scene, cfg)
-    k5_launches, recs, prof_ms = phase12(scene, cfg)
+    k5_launches, recs, prof_ms, img12 = phase12(scene, cfg)
+    phase15_render("big mesh", scene, cfg, img12, tk.LAUNCHES,
+                   ("treelet_walk",))
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(
@@ -2750,6 +3014,7 @@ def main():
                 prof_ms[rec.name], rec.mean_bound())
     entries += phase13()
     phase14(t6, t6_timings)
+    phase15_photon(t5, t6, t6_timings, launches)
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,14 +21,18 @@ def simulate(medium, run_cfg: Optional[PhotonRunConfig] = None,
 def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
            integrator: str = "path", ray_chunk: Optional[int] = None):
     """Render a camera image ``(H, W, 3)`` on the scene's device with the
-    NEE path tracer.  The other integrators of the JAX package (adaptive,
-    Whitted, BDPT) are not ported yet (ROADMAP)."""
+    NEE path tracer; ``cfg.fresnel_mode="split"`` renders through the
+    both-branch Fresnel tracer.  The other integrators of the JAX package
+    (adaptive, Whitted, BDPT) are not ported yet (ROADMAP)."""
     if integrator != "path":
         raise NotImplementedError(
             f"integrator={integrator!r} is not ported yet (ROADMAP); the "
             "port renders integrator='path'")
-    from light_transport_tpu_torch.integrators.path_tracer import render_image
+    from light_transport_tpu_torch.integrators import path_tracer
 
     cfg = cfg or RenderConfig()
-    return render_image(scene, cfg, cfg.seed if seed is None else seed,
-                        ray_chunk=ray_chunk)
+    render_one = (path_tracer.render_image_split
+                  if cfg.fresnel_mode == "split"
+                  else path_tracer.render_image)
+    return render_one(scene, cfg, cfg.seed if seed is None else seed,
+                      ray_chunk=ray_chunk)

@@ -1,22 +1,21 @@
 """Typed configuration objects.
 
 Field names and defaults equal ``light_transport_tpu.core.config`` so a
-configuration means the same run in both packages.  ``MeshTopology``
-belongs to a slice not yet ported.
+configuration means the same run in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Camera-render settings; the screen bounds derive from the aspect
     ratio.  The port renders ``sampler="uniform"``, ``aperture=0``,
-    ``fresnel_mode="stochastic"``, ``shadow_mode="opaque"`` and
-    ``compact_tail=False``; the other values raise at render time."""
+    ``shadow_mode="opaque"`` and ``compact_tail=False``; the other values
+    raise at render time."""
 
     width: int = 150
     height: int = 150
@@ -32,6 +31,8 @@ class RenderConfig:
     # 'all': one shadow ray per light triangle at its centroid
     nee_mode: str = "one"
     shadow_mode: str = "opaque"
+    # 'stochastic': one Fresnel branch sampled per transmissive hit;
+    # 'split': both followed (path_tracer.trace_paths_split)
     fresnel_mode: str = "stochastic"
     sampler: str = "uniform"
     compact_tail: bool = False
@@ -106,3 +107,16 @@ class PhotonRunConfig:
     # block.  Requires tally_stride >= 2.
     respawn_windows: int = 0
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshTopology:
+    """Device-mesh description for sharded runs (``parallel.mesh``).
+
+    Only data parallelism is needed for Monte Carlo transport: photon and
+    pixel batches shard over ``batch_axis``; the scene and medium tables
+    are replicated; tallies are summed over the shards.
+    """
+
+    batch_axis: str = "batch"
+    n_devices: Optional[int] = None  # None = every device of the process

@@ -4,10 +4,13 @@ A path is a pure function of its ``(lanes, max_depth, NUM_U)`` uniform
 tensor, as in ``light_transport_tpu.core.rng``.  The port draws the tensor
 from a ``torch.Generator`` on the device; JAX's threefry stream is not
 reproduced, so tests hand both packages the same numbers.
+:func:`fold_seed` derives the seeds of a run's parts (supersteps,
+progressive passes) from the run's seed.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 U_BSDF0 = 0  # concentric-disk / first BSDF uniform; also reflect-vs-refract
@@ -28,3 +31,14 @@ def path_uniforms(gen: torch.Generator, lanes: int, max_depth: int,
     u = torch.rand((lanes, max_depth, NUM_U), generator=gen, dtype=dtype,
                    device=gen.device)
     return u.clamp_(min=torch.finfo(dtype).tiny)
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """A 63-bit generator seed mixed from ``(seed, index)`` by numpy's
+    ``SeedSequence`` (the port's stand-in for ``jax.random.fold_in``).
+    Every bit depends on both, so torch's CPU generator, which keeps only
+    the low 32 bits of its seed, still draws a stream of its own for each
+    pair."""
+    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF,
+                                    int(index) & 0xFFFFFFFFFFFFFFFF])
+    return int(state.generate_state(1, np.uint64)[0]) & 0x7FFFFFFFFFFFFFFF

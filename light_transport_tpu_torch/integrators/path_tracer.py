@@ -11,20 +11,25 @@ emission (by ``emission_mode``) -> NEE shadow ray at diffuse and glossy
 vertices -> BSDF sample (diffuse, glossy, mirror, transmissive) ->
 Russian roulette after ``rr_start``.
 
-Not ported yet (ROADMAP): ``fresnel_mode="split"``, tail compaction, the
-Sobol sampler, thin-lens apertures, transmittance shadows, point lights.
+``fresnel_mode="split"`` follows both Fresnel branches of a transmissive
+hit (:func:`trace_paths_split`); :func:`render_progressive` averages
+renders of per-pass seeds.
+
+Not ported yet (ROADMAP): tail compaction, the Sobol sampler, thin-lens
+apertures, transmittance shadows, point lights.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.core import rng
 from light_transport_tpu_torch.core.config import RenderConfig
-from light_transport_tpu_torch.ops import dispatch, sampling
+from light_transport_tpu_torch.ops import dispatch, lanestack, sampling
 from light_transport_tpu_torch.ops.dispatch import (
     scene_intersect,
     scene_occluded,
@@ -154,11 +159,20 @@ def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
 
 
 def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
-            bounce: int, ray_chunk: Optional[int] = None,
-            coherent: bool = False):
-    """One superstep: ``u`` is this bounce's (N, NUM_U) uniforms.  Returns
-    the new state and the bounce's record entries.  ``coherent``: the
-    rays are the camera grid (see ``ops.dispatch.scene_intersect``)."""
+            bounce: Union[int, torch.Tensor],
+            ray_chunk: Optional[int] = None, coherent: bool = False,
+            split_ok: Optional[torch.Tensor] = None):
+    """One superstep: ``u`` is this bounce's (N, NUM_U) uniforms and
+    ``bounce`` the bounce index, an int or a per-lane (N,) tensor.
+    Returns the new state and the bounce's record entries.  ``coherent``:
+    the rays are the camera grid (see ``ops.dispatch.scene_intersect``).
+
+    ``split_ok`` (N,) bool (``fresnel_mode="split"``): an allowed lane
+    follows the refracted branch of a transmissive hit with weight
+    ``1 - R``, and a third output ``defer`` returns the reflected branch
+    (weight ``R``) for the caller to push: (mask, origin, direction,
+    throughput, and the six pre-refraction medium fields).  Lanes not
+    allowed (a full stack) keep the stochastic rule."""
     mats = scene.materials
     eps = lm.EPSILON
 
@@ -199,7 +213,7 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     # --- emission ----------------------------------------------------------
     lit = hit_ok & is_light
     if cfg.emission_mode == "first_hit":
-        add_emit = lit if bounce == 0 else torch.zeros_like(lit)
+        add_emit = lit & (bounce == 0)
     elif cfg.emission_mode == "nee":
         add_emit = lit & state.emit_ok
     elif cfg.emission_mode == "mis":
@@ -269,6 +283,8 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     refl_prob = sampling.schlick_reflectance(r0, cos_i)
     t_dir, tir = lm.refract(state.direction, n_s, n1 / n2)
     do_refract = (~tir) & (u[:, rng.U_BSDF0] > refl_prob)
+    if split_ok is not None:
+        do_refract = torch.where(split_ok, ~tir, do_refract)
     trans_dir = _where3(do_refract, t_dir, m_dir)
     trans_new_o = _where3(do_refract, hit_p - eps * n_s, hit_p + eps * n_s)
 
@@ -285,8 +301,13 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     new_dir = _where3(scatter_evt, hg_dir, new_dir)
     new_o = _where3(scatter_evt, scat_o, new_o)
     ones = torch.ones_like(diffuse_tp_scale)
+    other_scale = ones
+    if split_ok is not None:
+        trans_scale = torch.where(split_ok & ~tir, 1.0 - refl_prob, 1.0)
+        other_scale = _where3(is_trans, trans_scale[:, None].expand_as(ones),
+                              ones)
     tp_scale = _where3(is_diffuse, diffuse_tp_scale,
-                       _where3(is_glossy, glossy_tp_scale, ones))
+                       _where3(is_glossy, glossy_tp_scale, other_scale))
 
     shade = hit_ok & (is_diffuse | is_glossy) & ~scatter_evt
     direct_contrib = _where3(shade, tp_arr * direct, torch.zeros_like(direct))
@@ -344,12 +365,19 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     per_bounce = (log_pdf, hit_ok & state.alive, direct_contrib,
                   torch.where(reached, hit.tri, -1).to(torch.int32),
                   torch.where(reached, lm.luminance(tp_arr), 0.0))
-    return new_state, per_bounce
+    if split_ok is None:
+        return new_state, per_bounce
+    # the reflected sibling stays on the incoming side of the interface,
+    # in the pre-refraction medium
+    defer = (reached & is_trans & ~tir & split_ok & state.alive,
+             hit_p + eps * n_s, m_dir, tp_arr * refl_prob[:, None],
+             state.med_sig_a, state.med_sig_s, state.med_g,
+             state.out_sig_a, state.out_sig_s, state.out_g)
+    return new_state, per_bounce, defer
 
 
 def _check_config(cfg: RenderConfig):
     unported = {
-        "fresnel_mode": (cfg.fresnel_mode, "stochastic"),
         "shadow_mode": (cfg.shadow_mode, "opaque"),
         "sampler": (cfg.sampler, "uniform"),
         "aperture": (cfg.aperture, 0.0),
@@ -362,6 +390,8 @@ def _check_config(cfg: RenderConfig):
                 f"renders {name}={ported!r}")
     if cfg.max_depth < 1:
         raise ValueError(f"max_depth={cfg.max_depth} must be at least 1")
+    if cfg.fresnel_mode not in ("stochastic", "split"):
+        raise ValueError(f"unknown fresnel_mode {cfg.fresnel_mode!r}")
     if cfg.emission_mode not in ("first_hit", "always", "nee", "mis"):
         raise ValueError(f"unknown emission_mode {cfg.emission_mode!r}")
     if cfg.nee_mode not in ("one", "all"):
@@ -489,3 +519,136 @@ def render_with_detectors(scene, cfg: RenderConfig, seed: int = 0,
                                    ray_chunk=ray_chunk)
     energy, hits = surface_detector_tally(record, scene.mesh.num_triangles)
     return _to_image(radiance, cfg)[0], energy, hits
+
+
+# --------------------------------------------------------------------------
+# fresnel_mode="split": deterministic both-branch Fresnel
+# --------------------------------------------------------------------------
+
+def trace_paths_split(scene, cfg: RenderConfig, origins: torch.Tensor,
+                      directions: torch.Tensor, uniforms: torch.Tensor,
+                      ray_chunk: Optional[int] = None,
+                      stats: Optional[dict] = None) -> torch.Tensor:
+    """Both-branch Fresnel path tracing: at a transmissive hit a lane
+    follows the refracted branch with weight ``1 - R`` and pushes the
+    reflected one (weight ``R``, resuming at ``bounce + 1``) onto its
+    stack of ``S = min(depth, 6)`` slots; a lane
+    that dies pops its latest deferred branch.  A lane whose stack is full
+    samples one branch as :func:`trace_paths` does, so the estimator is
+    unbiased at any stack size; the split only lowers the variance.
+
+    Lanes carry their own bounce counter, and a branch reads the uniform
+    rows of its own depth, so a deferred branch re-reads the rows its
+    sibling read at that depth.  The loop runs one :func:`_split_step` an
+    iteration with one host readback (are any lanes alive?), at most
+    ``2 * sum_{k <= S} C(depth, k) + 1`` iterations: a lane visits at most
+    that many nodes of its branch tree, and pops once per push.  Returns
+    ``radiance (N, 3)`` (no TraceRecord).  ``stats``, if given, receives
+    ``iterations``."""
+    _check_config(cfg)
+    n = origins.shape[0]
+    depth = cfg.max_depth
+    S = min(depth, 6)
+    iters = 2 * sum(math.comb(depth, k) for k in range(S + 1)) + 1
+    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
+
+    state = PathState.initial(origins, directions)
+    bounce_v = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    z = torch.zeros((n,), dtype=origins.dtype, device=origins.device)
+    z3 = torch.zeros((n, 3), dtype=origins.dtype, device=origins.device)
+    stack = lanestack.zeros((z3, z3, z3, z3, z, z, z3, z, z, bounce_v), S)
+    top = torch.zeros_like(bounce_v)
+    done = 0
+    for it in range(iters):
+        state, bounce_v, stack, top, any_alive = _split_step(
+            scene, cfg, uniforms, state, bounce_v, stack, top, ray_chunk, S,
+            coherent=big and it == 0)
+        done = it + 1
+        if not bool(any_alive):  # one readback an iteration
+            break
+    if stats is not None:
+        stats["iterations"] = done
+    return state.radiance
+
+
+def _split_step(scene, cfg: RenderConfig, uniforms, state: PathState,
+                bounce_v, stack, top, ray_chunk, S: int,
+                coherent: bool = False):
+    """One iteration of :func:`trace_paths_split`: a bounce of every lane
+    at its own depth, the push of each split's reflected branch, and the
+    pop of the latest deferred branch into each lane that died.  Returns
+    ``(state, bounce_v, stack, top, any_alive)``, the last a device
+    bool."""
+    depth = cfg.max_depth
+    lanes = torch.arange(bounce_v.shape[0], device=bounce_v.device)
+    u = uniforms[lanes, torch.clamp(bounce_v, 0, depth - 1).long()]
+    # a branch deferred at the last bounce would start dead: no split there
+    split_ok = (top < S) & (bounce_v + 1 < depth)
+    new_state, _, defer = _bounce(scene, cfg, state, u, bounce_v, ray_chunk,
+                                  coherent=coherent, split_ok=split_ok)
+    new_bounce = bounce_v + 1
+    stack, top = lanestack.push(stack, top, defer[0],
+                                defer[1:] + (new_bounce,), S)
+    alive = new_state.alive & (new_bounce < depth)
+
+    # dead lanes resume their latest deferred branch
+    can_pop = ~alive & (top > 0)
+    (p_o, p_d, p_tp, p_ma, p_ms, p_mg, p_oa, p_os, p_og,
+     p_b) = lanestack.peek(stack, top, S)
+    top = top - can_pop.to(top.dtype)
+
+    def pick(pop_v, keep_v):
+        c = can_pop[:, None] if keep_v.dim() == 2 else can_pop
+        return torch.where(c, pop_v, keep_v)
+
+    res_state = PathState(
+        origin=pick(p_o, new_state.origin),
+        direction=pick(p_d, new_state.direction),
+        throughput=pick(p_tp, new_state.throughput),
+        radiance=new_state.radiance,
+        alive=alive | can_pop,
+        # a popped branch leaves a specular (transmissive) vertex: emission
+        # at its next hit was out of NEE's reach
+        emit_ok=new_state.emit_ok | can_pop,
+        prev_pdf=torch.where(can_pop, 0.0, new_state.prev_pdf),
+        med_sig_a=pick(p_ma, new_state.med_sig_a),
+        med_sig_s=pick(p_ms, new_state.med_sig_s),
+        med_g=pick(p_mg, new_state.med_g),
+        out_sig_a=pick(p_oa, new_state.out_sig_a),
+        out_sig_s=pick(p_os, new_state.out_sig_s),
+        out_g=pick(p_og, new_state.out_g))
+    res_bounce = torch.where(can_pop, p_b, new_bounce)
+    return res_state, res_bounce, stack, top, res_state.alive.any()
+
+
+def render_image_split(scene, cfg: RenderConfig, seed: int = 0,
+                       ray_chunk: Optional[int] = None):
+    """:func:`render_image` through :func:`trace_paths_split` (the same
+    lanes and uniforms): ``image (H, W, 3)`` clipped to [0, 1]."""
+    _check_config(cfg)
+    origins, directions, uniforms = _camera_lanes(
+        scene, cfg, _generator(scene, seed))
+    radiance = trace_paths_split(scene, cfg, origins, directions, uniforms,
+                                 ray_chunk=ray_chunk)
+    return _to_image(radiance, cfg)[0]
+
+
+def pass_seed(seed: int, p: int) -> int:
+    """Seed of pass ``p`` of a progressive render of ``seed``:
+    ``core.rng.fold_seed(seed, p)``."""
+    return rng.fold_seed(seed, p)
+
+
+def render_progressive(scene, cfg: RenderConfig, seed: int = 0,
+                       n_passes: int = 4, ray_chunk: Optional[int] = None):
+    """Progressive refinement: the average of ``n_passes`` renders, pass
+    ``p`` from seed :func:`pass_seed` ``(seed, p)``, so more passes only
+    add samples.  Each pass renders by ``cfg.fresnel_mode``."""
+    _check_config(cfg)
+    render_one = (render_image_split if cfg.fresnel_mode == "split"
+                  else render_image)
+    acc = None
+    for p in range(n_passes):
+        img = render_one(scene, cfg, pass_seed(seed, p), ray_chunk=ray_chunk)
+        acc = img if acc is None else acc + img
+    return acc / n_passes

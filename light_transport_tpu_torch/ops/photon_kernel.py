@@ -822,15 +822,22 @@ def simulate_kernel(medium: LayeredMedium, cfg: PhotonRunConfig, seed: int,
                                         quota, blocks, seed, fingerprint)
     if timings is not None and t1 is not None:
         sync()
-        t_end = time.perf_counter()
-        s_end = tallies.n_steps
-        steady_blocks = blocks - c1
-        timings["compile_plus_first_chunk_s"] = t1 - t0
-        timings["steady_s"] = t_end - t1
-        timings["steady_steps"] = s_end - s1
-        timings["steady_steps_per_sec"] = (s_end - s1) / max(t_end - t1, 1e-9)
-        timings["steady_blocks"] = steady_blocks
-        timings["steady_occupancy"] = (
-            (s_end - s1) / max(steady_blocks * lanes * eng.k_steps, 1))
-        timings["ms_per_block"] = (t_end - t1) / max(steady_blocks, 1) * 1e3
+        steady_timings(timings, t0, t1, time.perf_counter(), s1,
+                       tallies.n_steps, blocks - c1, lanes, eng.k_steps)
     return tallies
+
+
+def steady_timings(timings: dict, t0: float, t1: float, t_end: float,
+                   s1: int, s_end: int, steady_blocks: int, lanes: int,
+                   k_steps: int):
+    """Fill ``timings`` with the steady-state keys of a run that started
+    at ``t0``, ended its first chunk at ``t1`` with ``s1`` lane-steps and
+    its last at ``t_end`` with ``s_end``; ``lanes`` run each block."""
+    timings["compile_plus_first_chunk_s"] = t1 - t0
+    timings["steady_s"] = t_end - t1
+    timings["steady_steps"] = s_end - s1
+    timings["steady_steps_per_sec"] = (s_end - s1) / max(t_end - t1, 1e-9)
+    timings["steady_blocks"] = steady_blocks
+    timings["steady_occupancy"] = (
+        (s_end - s1) / max(steady_blocks * lanes * k_steps, 1))
+    timings["ms_per_block"] = (t_end - t1) / max(steady_blocks, 1) * 1e3

@@ -11,7 +11,7 @@ in lockstep supersteps — the MCML hop-drop-spin cycle as masked ops:
           tallies at top/bottom
   roulette + respawn: dead lanes reload fresh photons from the quota
 
-Uniforms for superstep ``s`` come from a ``torch.Generator`` seeded with
+Uniforms for superstep ``s`` come from a ``torch.Generator`` seeded from
 (seed, s), so a run is a pure function of its seed.  Tallies are updated
 in place (the grids are large; a functional update would copy them every
 step).  This engine reaches no hand-written kernel.
@@ -25,6 +25,7 @@ from typing import Tuple
 import torch
 
 from light_transport_tpu_torch.core.config import PhotonRunConfig
+from light_transport_tpu_torch.core.rng import fold_seed
 from light_transport_tpu_torch.ops import sampling
 from light_transport_tpu_torch.scene.medium import LayeredMedium
 from light_transport_tpu_torch.tally.tallies import PhotonTallies
@@ -63,10 +64,10 @@ class PhotonState:
 
 
 def step_uniforms(seed: int, step: int, n: int, device) -> torch.Tensor:
-    """(n, 5) uniforms of superstep ``step`` from a generator keyed on
-    (seed, step)."""
+    """(n, 5) uniforms of superstep ``step`` from a generator seeded with
+    ``core.rng.fold_seed(seed, step)``."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    gen.manual_seed(fold_seed(seed, step))
     return torch.rand((n, _NUM_U), generator=gen, device=device)
 
 

@@ -296,10 +296,17 @@ def test_render_entry_points_on_the_cpu():
     dict(fresnel_mode="split"), dict(sampler="sobol"), dict(aperture=0.1),
     dict(shadow_mode="transmittance"), dict(compact_tail=True)])
 def test_unported_options_raise(change):
+    """Each option the port lacks raises; ``fresnel_mode="split"``, ported
+    since, renders through ``api.render`` with the split tracer."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
+    cfg = dataclasses.replace(cfg, **change)
+    if change == dict(fresnel_mode="split"):
+        img = api.render(scene, cfg)
+        assert torch.equal(img, pt.render_image_split(scene, cfg))
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.render(scene, dataclasses.replace(cfg, **change))
+        api.render(scene, cfg)
 
 
 def test_unported_integrators_raise():

@@ -142,6 +142,7 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.ops._build\n"
         "import light_transport_tpu_torch.transport.photon\n"
         "import light_transport_tpu_torch.models.presets\n"
+        "import light_transport_tpu_torch.parallel.mesh\n"
         "import light_transport_tpu_torch.tally.stats\n"
         "import light_transport_tpu_torch.utils.interop\n"
         "import light_transport_tpu_torch.utils.checkpoint\n"
@@ -153,6 +154,7 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.ops.dispatch\n"
         "import light_transport_tpu_torch.ops.feature_probes\n"
         "import light_transport_tpu_torch.ops.intersect\n"
+        "import light_transport_tpu_torch.ops.lanestack\n"
         "import light_transport_tpu_torch.ops.intersect_kernel\n"
         "import light_transport_tpu_torch.ops.raysort\n"
         "import light_transport_tpu_torch.ops.treelet_kernel\n"
