@@ -116,6 +116,23 @@ script exits non-zero without the final result line):
      steady steps/s beside phase 6's), over two virtual shards on the
      card (15b: R_d within 3 sigma of phase 6's) and simulate_sharded
      (the superstep engine) over two shards against phase 5 (15c)
+ 16. the Whitted integrator, point lights and analytic primitives, each
+     render's first and second wall, kernel launches, host syncs (by
+     place) and device busy time under torch.profiler: after 15e, the
+     hard-shadow preset (16a, card against CPU), Whitted on the soft-
+     shadow scene through the cull kernel and K4 (16b, K4's and the
+     cull's launches and mean time by CUDA events, a crop against the
+     plain intersector), Whitted on glass through K3 (16c: the tree at
+     depth 3 and the queue at depth 6 against the plain intersector, the
+     queue against the tree at depth 3, supersteps), the point-light
+     preset through the path tracer (16d, card against CPU) and the
+     analytic sphere, diffuse and mirror, Whitted and path tracer (16e,
+     card against CPU); after 15d's big mesh, that render with one point
+     light (one more K5 launch a bounce; the bounce-1 point-light shadow
+     rays bitwise the plain walk; a plain re-trace) and Whitted on the
+     big mesh through K5 (a crop against the plain walk).  Comparisons
+     that would take minutes at full width run on a contiguous crop of
+     the render's lanes
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -148,11 +165,14 @@ from light_transport_tpu_torch.core.config import (
     RenderConfig,
 )
 from light_transport_tpu_torch.integrators import path_tracer as pt
+from light_transport_tpu_torch.integrators import whitted as tw
 from light_transport_tpu_torch.models.presets import (
     full_scale,
     glass_scene,
+    hard_shadow_scene,
     hg_sweep,
     multilayer_mismatch,
+    point_light_scene,
 )
 from light_transport_tpu_torch.accel import bvh as bvh_mod
 from light_transport_tpu_torch.ops import _build
@@ -163,6 +183,7 @@ from light_transport_tpu_torch.ops import photon_kernel as pk
 from light_transport_tpu_torch.ops import raysort
 from light_transport_tpu_torch.ops import treelet_kernel as tk
 from light_transport_tpu_torch.parallel import mesh as pm
+from light_transport_tpu_torch.scene.analytic import AnalyticPrims
 from light_transport_tpu_torch.scene.cornell import (
     cornell_box_scene,
     sphere_triangles,
@@ -1581,7 +1602,7 @@ def sorted_single(mesh):
         def one(o_, d_, t_):
             hit, stats = tk.intersect_bvh_treelet(
                 o_, d_, tables, t_max=t_, any_hit=any_hit, with_stats=True)
-            parts = (hit,) if any_hit else tuple(hit)
+            parts = (hit,) if any_hit else tuple(hit)[:3]
             return (*parts, stats["visits"])
         out = raysort.sorted_apply(one, mesh, o, d, t_max,
                                    inactive=t_max == float("-inf"))
@@ -2911,6 +2932,366 @@ def phase15_split(glass):
               "15f: outside [0, 1]")
         check(abs(mean - want) < 4 * se, f"15f {c.fresnel_mode}: mean {mean}")
 
+# --------------------------------------------------------------------------
+# phase 16: the Whitted integrator, point lights, analytic primitives
+# --------------------------------------------------------------------------
+
+# 15e's limits for a card against the CPU: pixels (or lanes) within 1e-3,
+# mean absolute difference
+CPU_PIXELS, CPU_WITHIN, CPU_MEAN = 0.995, 1e-3, 1e-3
+# PERF.md's render parity, for a kernel against its plain version
+PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN = 0.99, 1e-3, 2e-3
+# contiguous lanes of a render re-traced through a plain version or on the
+# CPU, where the full width would take minutes there
+CROP_SOFT = 16_000  # soft shadow: rows 180-219 of 400
+CROP_ROWS = (150, 250)  # 400x400 Whitted renders rendered again on the CPU
+CROP_CPU = 20_000  # path renders traced again on the CPU
+CROP_BIG = 2_048  # big-mesh Whitted through the plain walk
+WHITTED_QUEUE_ATOL = 6e-3  # tests/test_whitted.py's queue-against-tree
+
+
+def device_busy(fn):
+    """(device ms, kernel launches) of one ``fn()`` under torch.profiler,
+    the device's activity only (a render's host events would take the
+    profiler seconds to sort)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows))
+
+
+def render_numbers(label, fn):
+    """A render ``fn()`` twice, its kernel launches counted from 0 on the
+    first call; its host syncs on a third and its device busy time under
+    torch.profiler on a fourth.  Returns (first image, launches, second
+    wall in s)."""
+    t_all = time.perf_counter()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn()
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    launched = {k: v for k, v in {**ik.LAUNCHES, **tk.LAUNCHES}.items()
+                if v}
+    check(bvh_mod.PLAIN_WALKS == 0, f"16 {label}: the plain walk ran")
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    where = {}
+    syncs = count_syncs(fn, where)
+    busy, n_launch = device_busy(fn)
+    log(16, f"{label}: first call {wall1:.4f} s, second {wall2:.4f} s; "
+            f"kernel launches {launched}; host syncs {syncs}; device busy "
+            f"{busy:.3f} ms under the profiler ({busy / (wall2 * 1e3):.3f} "
+            f"of the second call's wall), {n_launch} launches; syncs by "
+            f"place " + ", ".join(f"{k} x{v}" for k, v in sorted(
+                where.items())) + f" [{smi()}]", t_all)
+    check(bool(torch.isfinite(img).all()), f"16 {label}: not finite")
+    return img, launched, wall2
+
+
+def parity(label, got, want, limits):
+    """Pixels (rows of 3) of ``got`` within ``limits[1]`` of ``want`` in
+    every channel, at least a share ``limits[0]`` of them, and a mean
+    absolute difference under ``limits[2]``."""
+    share, within, mean = limits
+    g = got.reshape(-1, 3).double().cpu()
+    w = want.reshape(-1, 3).double().cpu()
+    diff = (g - w).abs()
+    frac = float((diff <= within).all(dim=1).double().mean())
+    mad = float(diff.mean())
+    log(16, f"{label}: {frac:.5f} of {g.shape[0]} pixels within {within}, "
+            f"mean abs diff {mad:.3g}, max {float(diff.max()):.3g}")
+    check(frac >= share, f"16 {label}: {frac} of pixels within {within}")
+    check(mad < mean, f"16 {label}: mean abs diff {mad}")
+
+
+def whitted_crop(scene, cfg, lo, n, queue=False):
+    """Lanes ``lo`` to ``lo + n`` of ``render_whitted``'s primary rays
+    traced by the unrolled tree (or the queue), clipped as the render
+    clips."""
+    o, d = tw._primary_rays(scene, cfg)
+    o, d = o[lo:lo + n], d[lo:lo + n]
+    trace = tw.trace_whitted_queue if queue else tw.trace_whitted
+    return trace(scene, o, d, cfg.max_depth).clamp(0.0, 1.0)
+
+
+def whitted_render(scene, cfg):
+    return lt.render(scene, cfg, seed=0, integrator="whitted")
+
+
+def whitted_against_cpu(label, img, scene_cpu, cfg):
+    """Rows CROP_ROWS of a card's 400x400 Whitted image against the same
+    rows rendered on the CPU, to 15e's limits."""
+    lo, hi = (r * cfg.width for r in CROP_ROWS)
+    t0 = time.perf_counter()
+    cpu = whitted_crop(scene_cpu, cfg, lo, hi - lo)
+    log(16, f"{label}: CPU render of lanes {lo}-{hi} (rows {CROP_ROWS[0]}-"
+            f"{CROP_ROWS[1] - 1}, a crop) {time.perf_counter() - t0:.2f} s")
+    parity(f"{label} card against CPU (crop)", img.reshape(-1, 3)[lo:hi],
+           cpu, (CPU_PIXELS, CPU_WITHIN, CPU_MEAN))
+
+
+def phase16a():
+    """The hard-shadow preset (16 triangles: the brute force, no kernel)
+    on the card against the port's CPU render of the same rays."""
+    scene, cfg = hard_shadow_scene(device=DEV)
+    img, launched, _ = render_numbers(
+        f"16a hard_shadow_scene {cfg.width}x{cfg.height} Whitted depth "
+        f"{cfg.max_depth}", lambda: whitted_render(scene, cfg))
+    check(not launched, f"16a: kernels launched {launched}")
+    whitted_against_cpu("16a hard_shadow_scene", img,
+                        hard_shadow_scene(device="cpu")[0], cfg)
+    check(float(img.mean()) > 0.01, "16a: black image")
+
+
+def phase16b(soft):
+    """Whitted on the soft-shadow scene through the cull kernel and K4,
+    a crop held against the plain intersector."""
+    cfg = dataclasses.replace(SOFT_SHADOW_CFG, spp=1)
+    img, launched, _ = render_numbers(
+        f"16b soft shadow {cfg.width}x{cfg.height} Whitted depth "
+        f"{cfg.max_depth}", lambda: whitted_render(soft, cfg))
+    for name in ("tile_cull", "intersect_gather"):
+        check(launched.get(name, 0) > 0, f"16b: no {name} launch")
+    t0 = time.perf_counter()
+    with Recorder("intersect_gather") as rec, CullRecorder() as cull:
+        whitted_render(soft, cfg)
+        torch.cuda.synchronize()
+    n, ms, pairs = rec.summary()
+    nc, cull_ms = cull.summary()
+    log(16, f"16b K4: {n} launches, {ms:.4f} ms mean by CUDA events, "
+            f"admitted pairs per launch {pairs}; cull: {nc} launches, "
+            f"{cull_ms:.4f} ms mean [{smi()}]", t0)
+    lo = 180 * cfg.width
+    t0 = time.perf_counter()
+    with plain_intersector():
+        plain = whitted_crop(soft, cfg, lo, CROP_SOFT)
+    log(16, f"16b plain intersector on lanes {lo}-{lo + CROP_SOFT} "
+            f"(a crop) {time.perf_counter() - t0:.2f} s")
+    parity("16b kernels against the plain intersector (crop)",
+           img.reshape(-1, 3)[lo:lo + CROP_SOFT], plain,
+           (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
+
+
+def phase16c(glass):
+    """Whitted on the glass preset through K3: the unrolled tree at depth
+    3, the queue (on ops/lanestack) at depth 6, both against the plain
+    intersector; the queue at depth 3 against the tree."""
+    scene, cfg = glass
+    cfg3 = dataclasses.replace(cfg, max_depth=3)
+    cfg6 = dataclasses.replace(cfg, max_depth=6)
+    n = cfg.width * cfg.height
+    imgs = {}
+    for c in (cfg3, cfg6):
+        imgs[c.max_depth], launched, _ = render_numbers(
+            f"16c glass {c.width}x{c.height} Whitted depth {c.max_depth} "
+            f"({'queue' if c.max_depth > tw.UNROLL_MAX_DEPTH else 'tree'})",
+            lambda c=c: whitted_render(scene, c))
+        check(launched.get("intersect_dense", 0) > 0, "16c: no K3 launch")
+    o, d = tw._primary_rays(scene, cfg3)
+    stats = {}
+    tw.trace_whitted_queue(scene, o, d, 6, stats=stats)
+    tree = tw.trace_whitted(scene, o, d, 3)
+    qstats = {}
+    queue = tw.trace_whitted_queue(scene, o, d, 3, stats=qstats)
+    err = float((queue - tree).abs().max())
+    log(16, f"16c the queue: {stats['supersteps']} supersteps at depth 6, "
+            f"{qstats['supersteps']} at depth 3; queue against tree at "
+            f"depth 3 max abs diff {err:.3g} (limit {WHITTED_QUEUE_ATOL})")
+    check(err <= WHITTED_QUEUE_ATOL, f"16c: queue against tree {err}")
+    t0 = time.perf_counter()
+    with plain_intersector():
+        plain3 = whitted_crop(scene, cfg3, 0, n)
+        plain6 = whitted_crop(scene, cfg6, 0, n, queue=True)
+    log(16, f"16c plain intersector, both depths, every lane "
+            f"{time.perf_counter() - t0:.2f} s")
+    parity("16c tree (depth 3) against the plain intersector", imgs[3],
+           plain3, (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
+    parity("16c queue (depth 6) against the plain intersector", imgs[6],
+           plain6, (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
+
+
+def paths_against_cpu(label, scene, scene_cpu, cfg, seed):
+    """The path tracer on the card (every lane) and on the CPU (the first
+    CROP_CPU lanes) from uniforms drawn once on the CPU."""
+    o, d, u = pt._camera_lanes(scene_cpu, cfg, pt._generator(scene_cpu,
+                                                             seed))
+    rad = pt.trace_paths(scene, cfg, o.to(DEV), d.to(DEV), u.to(DEV))[0]
+    t0 = time.perf_counter()
+    k = min(CROP_CPU, o.shape[0])
+    rad_cpu = pt.trace_paths(scene_cpu, cfg, o[:k], d[:k], u[:k])[0]
+    log(16, f"{label}: CPU trace of lanes 0-{k} of {o.shape[0]} "
+            f"{time.perf_counter() - t0:.2f} s")
+    parity(f"{label} card against CPU (lanes' radiance)", rad[:k], rad_cpu,
+           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN))
+
+
+def phase16d():
+    """The point-light preset through the path tracer (28 triangles: the
+    brute force, no kernel), card against CPU."""
+    scene, cfg = point_light_scene(device=DEV)
+    img, launched, _ = render_numbers(
+        f"16d point_light_scene {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth} (path tracer)", lambda: lt.render(scene, cfg))
+    # the Cornell box's 28 triangles take the brute force
+    check(not launched, f"16d: kernels launched {launched}")
+    check(float(img.mean()) > 0.01, "16d: black image")
+    paths_against_cpu("16d point_light_scene", scene,
+                      point_light_scene(device="cpu")[0], cfg, 7)
+
+
+def analytic_scene(sphere_mat, device):
+    """tests/test_analytic.py's scene: a floor, a ceiling light and one
+    analytic sphere of material ``sphere_mat``, at 400x400, 8 spp, depth
+    3."""
+    floor = quad_triangles((-20, -1, -20), (-20, -1, 20), (20, -1, 20),
+                           (20, -1, -20))
+    lq = quad_triangles((-2, 8, -3), (2, 8, -3), (2, 8, 1), (-2, 8, 1))
+    mesh = TriangleMesh.build(np.concatenate([floor, lq]),
+                              np.asarray([0, 0, 1, 1], np.int32),
+                              np.asarray([False, False, True, True]),
+                              device=device)
+    mats = MaterialTable.build([
+        Material(color=presets.GREY),
+        Material(color=presets.WHITE, emission=6.0), sphere_mat],
+        device=device)
+    prims = AnalyticPrims.build(spheres=[((0.0, 0.0, -1.0), 1.0, 2)],
+                                device=device)
+    scene = Scene.build(mesh, mats, camera=[0.0, 1.0, 6.0], analytic=prims)
+    cfg = RenderConfig(width=400, height=400, spp=8, max_depth=3,
+                       f_distance=3.0)
+    return scene, cfg
+
+
+ANALYTIC_SPHERES = {
+    "diffuse": Material(color=presets.TURQUOISE),
+    "mirror": Material(color=presets.SILVER, is_diffuse=False,
+                       is_mirror=True, reflection=1.0),
+}
+
+
+def phase16e():
+    """The analytic sphere, diffuse and mirror: Whitted and the path
+    tracer, card against CPU."""
+    for name, mat in ANALYTIC_SPHERES.items():
+        scene, cfg = analytic_scene(mat, DEV)
+        scene_cpu, _ = analytic_scene(mat, "cpu")
+        img, _, _ = render_numbers(
+            f"16e analytic {name} sphere {cfg.width}x{cfg.height} Whitted "
+            f"depth {cfg.max_depth}", lambda: whitted_render(scene, cfg))
+        whitted_against_cpu(f"16e {name} sphere Whitted", img, scene_cpu,
+                            cfg)
+        img, _, _ = render_numbers(
+            f"16e analytic {name} sphere {cfg.width}x{cfg.height}x"
+            f"{cfg.spp} depth {cfg.max_depth} (path tracer)",
+            lambda: lt.render(scene, cfg))
+        check(float(img.mean()) > 0.01, f"16e {name}: black image")
+        paths_against_cpu(f"16e {name} sphere", scene, scene_cpu, cfg, 9)
+
+
+def phase16(glass, soft):
+    """16a-16e but the big mesh (phase16_big, after phase 12)."""
+    t0 = time.perf_counter()
+    phase16a()
+    phase16b(soft)
+    phase16c(glass)
+    phase16d()
+    phase16e()
+    wall = time.perf_counter() - t0
+    log(16, f"16a-16e done", t0)
+    return wall
+
+
+def point_light_shadow_rays(scene, cfg):
+    """The point-light shadow query of bounce 1 of phase 11's 65,536
+    camera lanes, as the path tracer makes it: (origins, directions,
+    max_dist, active, the dispatch's answer)."""
+    cam_cfg = dataclasses.replace(cfg, spp=1)
+    o, d, u = pt._camera_lanes(scene, cam_cfg, generator(11))
+    state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0,
+                          coherent=True)
+    calls, fn = [], pt.scene_occluded
+
+    def spy(*a, **k):
+        out = fn(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    pt.scene_occluded = spy
+    try:
+        pt._bounce(scene, cfg, state, u[:, 1], 1)
+    finally:
+        pt.scene_occluded = fn
+    check(len(calls) == 2, f"bounce 1 made {len(calls)} any-hit queries")
+    (_, bo, bd, md), k, occ = calls[1]  # the area light's, then the point's
+    return bo, bd, md, k["active"], occ
+
+
+def phase16_big(scene, cfg):
+    """The big-mesh render with one point light (one more K5 any-hit
+    launch a bounce), its bounce-1 point-light shadow rays against the
+    plain walk bitwise, a re-trace; then Whitted on the big mesh through
+    K5, a crop against the plain walk."""
+    t0 = time.perf_counter()
+    lit = scene.with_point_lights([[0.0, 3.0, 0.0]], [[50.0, 50.0, 50.0]])
+    img, launched, _ = render_numbers(
+        f"16d big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth} with a point light (path tracer)",
+        lambda: lt.render(lit, cfg, seed=0))
+    check(launched.get("treelet_walk", 0) == 3 * cfg.max_depth,
+          f"16d: K5 launches {launched}, expected {3 * cfg.max_depth}")
+    check(sum(ik.LAUNCHES.values()) == 0, "16d: cluster kernels launched")
+    bo, bd, md, act, occ = point_light_shadow_rays(lit, cfg)
+    t_hi = torch.where(act, md, float("-inf"))
+    with plain_treelet():
+        want = tk.intersect_bvh_treelet(bo, bd, lit.treelet, t_max=t_hi,
+                                        any_hit=True, with_stats=True)
+    got = sorted_single(lit.mesh)(bo, bd, lit.treelet, t_max=t_hi,
+                                  any_hit=True, with_stats=True)
+    n_hit = same_hits("16d point-light shadow rays", got, want)
+    check(torch.equal(occ, got[0]), "16d: the dispatch's answer differs")
+    log(16, f"16d point-light shadow rays of bounce 1: {bo.shape[0]} rays "
+            f"({int(act.sum())} active), {n_hit} occluded; bitwise equal "
+            f"to the plain walk in the mask and per-ray visits")
+    n_lanes = cfg.width * cfg.height * cfg.spp
+    o, d, u = pt._camera_lanes(lit, cfg, pt._generator(lit, 0))
+    lanes = torch.arange(0, n_lanes, 97, device=DEV)
+    with plain_treelet():
+        rad_p, _ = pt.trace_paths(lit, cfg, o[lanes], d[lanes], u[lanes])
+    _, samples = pt.render_image(lit, cfg, seed=0, return_samples=True)
+    rad_k = samples.permute(2, 0, 1, 3).reshape(-1, 3)[lanes]
+    close = torch.isclose(rad_k, rad_p, rtol=1e-3, atol=1e-6).all(dim=1)
+    frac = float(close.float().mean())
+    log(16, f"16d big mesh with a point light: plain re-trace of "
+            f"{lanes.shape[0]} lanes {frac:.5f} within rtol 1e-3; image "
+            f"mean {float(img.mean()):.5f}")
+    check(frac >= 0.99, f"16d big mesh: {frac} of lanes agree")
+    wcfg = dataclasses.replace(cfg, spp=1)
+    img, launched, _ = render_numbers(
+        f"16d big mesh {wcfg.width}x{wcfg.height} Whitted depth "
+        f"{wcfg.max_depth}", lambda: whitted_render(scene, wcfg))
+    check(launched.get("treelet_walk", 0) > 0, "16d Whitted: no K5")
+    lo = (wcfg.height // 2) * wcfg.width
+    t1 = time.perf_counter()
+    with plain_treelet():
+        plain = whitted_crop(scene, wcfg, lo, CROP_BIG)
+    log(16, f"16d plain walk on lanes {lo}-{lo + CROP_BIG} (a crop) "
+            f"{time.perf_counter() - t1:.2f} s")
+    parity("16d big-mesh Whitted against the plain walk (crop)",
+           img.reshape(-1, 3)[lo:lo + CROP_BIG], plain,
+           (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
+    wall = time.perf_counter() - t0
+    log(16, "16d big mesh done", t0)
+    return wall
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2951,6 +3332,7 @@ def main():
     phase15_render("soft shadow", soft, SOFT_SHADOW_CFG, img10, ik.LAUNCHES,
                    ("tile_cull", "intersect_gather"))
     phase15_split(glass)
+    wall16 = phase16(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -3002,6 +3384,8 @@ def main():
     k5_launches, recs, prof_ms, img12 = phase12(scene, cfg)
     phase15_render("big mesh", scene, cfg, img12, tk.LAUNCHES,
                    ("treelet_walk",))
+    wall16 += phase16_big(scene, cfg)
+    log(16, f"phase 16 in all {wall16:.2f} s")
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(

@@ -1,4 +1,5 @@
-"""Public API: the photon engine and the camera render."""
+"""Public API: the photon engine and the camera render (path tracer and
+Whitted)."""
 
 from __future__ import annotations
 
@@ -20,19 +21,43 @@ def simulate(medium, run_cfg: Optional[PhotonRunConfig] = None,
 
 def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
            integrator: str = "path", ray_chunk: Optional[int] = None):
-    """Render a camera image ``(H, W, 3)`` on the scene's device with the
-    NEE path tracer; ``cfg.fresnel_mode="split"`` renders through the
-    both-branch Fresnel tracer.  The other integrators of the JAX package
-    (adaptive, Whitted, BDPT) are not ported yet (ROADMAP)."""
-    if integrator != "path":
+    """Render a camera image ``(H, W, 3)`` on the scene's device.
+    ``integrator``: ``"path"``, the NEE path tracer
+    (``cfg.fresnel_mode="split"`` renders through the both-branch Fresnel
+    tracer), or ``"whitted"``, the Whitted ray tracer (one ray a pixel).
+    The JAX package's adaptive and BDPT integrators are not ported yet
+    (ROADMAP)."""
+    if integrator in ("adaptive", "bdpt"):
         raise NotImplementedError(
             f"integrator={integrator!r} is not ported yet (ROADMAP); the "
-            "port renders integrator='path'")
+            "port renders integrator='path' and 'whitted'")
+    if integrator not in ("path", "whitted"):
+        raise ValueError(f"unknown integrator: {integrator}")
+    cfg = cfg or RenderConfig()
+    if integrator == "whitted":
+        # one deterministic ray a pixel: no sampler and no lens to sample
+        if cfg.sampler != "uniform":
+            raise ValueError(
+                f"sampler={cfg.sampler!r} applies to the path tracer only "
+                f"(got integrator={integrator!r})")
+        if cfg.aperture > 0.0:
+            raise ValueError(
+                "aperture > 0 (thin-lens DOF) is supported by the path "
+                f"integrator only (got integrator={integrator!r})")
+    if cfg.emission_mode == "mis" and cfg.nee_mode != "one":
+        raise ValueError(
+            "emission_mode='mis' requires nee_mode='one' (the power "
+            "heuristic needs the NEE sampling density)")
+    seed = cfg.seed if seed is None else seed
+    if integrator == "whitted":
+        from light_transport_tpu_torch.integrators.whitted import (
+            render_whitted,
+        )
+
+        return render_whitted(scene, cfg, seed, ray_chunk=ray_chunk)
     from light_transport_tpu_torch.integrators import path_tracer
 
-    cfg = cfg or RenderConfig()
     render_one = (path_tracer.render_image_split
                   if cfg.fresnel_mode == "split"
                   else path_tracer.render_image)
-    return render_one(scene, cfg, cfg.seed if seed is None else seed,
-                      ray_chunk=ray_chunk)
+    return render_one(scene, cfg, seed, ray_chunk=ray_chunk)

@@ -15,8 +15,12 @@ Russian roulette after ``rr_start``.
 hit (:func:`trace_paths_split`); :func:`render_progressive` averages
 renders of per-pass seeds.
 
+Point lights (``Scene.point_lights``) add a deterministic direct term at
+each NEE vertex, and analytic spheres and planes shade through
+``scene.analytic.surface_attrs``.
+
 Not ported yet (ROADMAP): tail compaction, the Sobol sampler, thin-lens
-apertures, transmittance shadows, point lights.
+apertures, transmittance shadows.
 """
 
 from __future__ import annotations
@@ -116,7 +120,35 @@ def _where3(cond, a, b):
 def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
                   diffuse_rgb, spec_rgb, shin, f_diffuse, nee_active,
                   ray_chunk):
-    """The NEE estimate at each lane's vertex (zero where blocked)."""
+    """The NEE estimate at each lane's vertex (zero where blocked), the
+    point lights' deterministic term included."""
+    direct = _area_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
+                         diffuse_rgb, spec_rgb, shin, f_diffuse, nee_active,
+                         ray_chunk)
+    plt_ = scene.point_lights
+    if plt_ is None:
+        return direct
+    # f(wi) * I * cos(theta) / r^2 * V per point light: no pdf and no MIS
+    # weight (BSDF sampling cannot hit a delta light), and no uniforms, so
+    # a scene without point lights keeps its stream
+    for li in range(plt_.num):
+        to_l = plt_.position[li].expand_as(shadow_o) - shadow_o
+        d2 = torch.clamp(lm.dot(to_l, to_l), min=1e-20)
+        dist_i = torch.sqrt(d2)
+        wi_i = to_l / dist_i[:, None]
+        cos_i = torch.clamp(lm.dot(n_s, wi_i), min=0.0)
+        f_i = _where3(is_glossy, sampling.glossy_f(
+            diffuse_rgb, spec_rgb, shin, m_dir, wi_i), f_diffuse)
+        contrib = plt_.intensity[li] * f_i * (cos_i / d2)[:, None]
+        blk = scene_occluded(scene, shadow_o, wi_i, dist_i * (1.0 - 1e-3),
+                             ray_chunk=ray_chunk, active=nee_active)
+        direct = direct + _where3(blk, torch.zeros_like(contrib), contrib)
+    return direct
+
+
+def _area_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy, diffuse_rgb,
+                spec_rgb, shin, f_diffuse, nee_active, ray_chunk):
+    """The area lights' NEE estimate (by ``cfg.nee_mode``)."""
     if cfg.nee_mode == "all":
         # one shadow ray per light triangle at its centroid, area-weighted
         lt_ = scene.lights

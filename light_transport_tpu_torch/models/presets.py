@@ -1,14 +1,19 @@
 """Runnable presets: callables returning ``(medium, cfg)`` for the photon
 engine or ``(scene, cfg)`` for the render, as the JAX package's presets
-do.  The point-light and hard-shadow render presets belong to a later
-slice (ROADMAP)."""
+do."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict
 
-from light_transport_tpu_torch.core.config import MediumConfig, PhotonRunConfig
+import numpy as np
+
+from light_transport_tpu_torch.core.config import (
+    MediumConfig,
+    PhotonRunConfig,
+    RenderConfig,
+)
 from light_transport_tpu_torch.scene.cornell import cornell_box_scene
 from light_transport_tpu_torch.scene.medium import LayeredMedium
 
@@ -84,6 +89,69 @@ def lts_scene(device="cuda", **kw):
     return cornell_box_scene(device=device, **kw)
 
 
+def point_light_scene(width=150, height=150, spp=12, max_depth=4,
+                      device="cuda"):
+    """The LTS Cornell box lit by one point (delta) light instead of its
+    panel: the panel's emission is 0 (it stays as dark geometry) and a
+    bare bulb hangs mid-room at (0, 3, 0) with I = 200, the panel's total
+    power (a one-sided Lambertian panel emits pi L A; an isotropic point
+    of equal power has I = L A / 4 = 200 * 4 / 4)."""
+    scene, cfg = cornell_box_scene(width=width, height=height, spp=spp,
+                                   max_depth=max_depth, emission=0.0,
+                                   device=device)
+    scene = scene.with_point_lights([[0.0, 3.0, 0.0]],
+                                    [[200.0, 200.0, 200.0]])
+    return scene, cfg
+
+
+def hard_shadow_scene(width=400, height=400, device="cuda"):
+    """The reference's hard_shadow notebook scene, the Whitted golden
+    image's: a 2-unit cube at [0, 2]^3 on a green floor (y = -2, x +-52,
+    z +-7), the light a tiny emissive quad at (3, 5, 3) (Whitted shades
+    from light-row centroids), the camera at (0, 0, 3.5) with the screen
+    plane at z = 3, 400x400, depth 3."""
+    from light_transport_tpu_torch.scene.geometry import (
+        TriangleMesh,
+        concat_meshes,
+        quad_triangles,
+    )
+    from light_transport_tpu_torch.scene.material import (
+        Material,
+        MaterialTable,
+        presets,
+    )
+    from light_transport_tpu_torch.scene.scene import Scene
+
+    # the unit-2 cube, its quad faces fanned like the reference loader
+    v = np.array([[0, 2, 2], [0, 0, 2], [2, 0, 2], [2, 2, 2],
+                  [0, 2, 0], [0, 0, 0], [2, 0, 0], [2, 2, 0]], np.float64)
+    faces = [(0, 1, 2, 3), (7, 6, 5, 4), (3, 2, 6, 7),
+             (4, 0, 3, 7), (4, 5, 1, 0), (1, 5, 6, 2)]
+    cube_t = np.concatenate(
+        [quad_triangles(v[a], v[b], v[c], v[d]) for a, b, c, d in faces])
+    cube = TriangleMesh.build(cube_t, np.zeros(len(cube_t), np.int32),
+                              device=device)
+    floor = TriangleMesh.build(
+        quad_triangles((-52, -2, -7), (-52, -2, 7), (52, -2, 7),
+                       (52, -2, -7)),
+        np.asarray([1, 1], np.int32), device=device)
+    s = 0.01  # the notebook's point light as a tiny quad
+    lq = quad_triangles((3 - s, 5, 3 - s), (3 + s, 5, 3 - s),
+                        (3 + s, 5, 3 + s), (3 - s, 5, 3 + s))
+    lights = TriangleMesh.build(lq, np.asarray([2, 2], np.int32),
+                                np.asarray([True, True]), device=device)
+    green = Material(color=presets.GREEN, shininess=90, reflection=0.1)
+    source = Material(color=presets.WHITE, shininess=1, reflection=0.9,
+                      emission=1.0)
+    mats = MaterialTable.build([presets.BRONZE_MAT, green, source],
+                               device=device)
+    mesh = concat_meshes([cube, floor, lights])
+    scene = Scene.build(mesh, mats, camera=[0.0, 0.0, 3.5])
+    cfg = RenderConfig(width=width, height=height, spp=1, max_depth=3,
+                       f_distance=3.0)
+    return scene, cfg
+
+
 def glass_scene(width=100, height=100, spp=4, max_depth=3, device="cuda"):
     """The whisky glass (body, liquid, ice; 414 triangles with the box)
     standing in the Cornell box, rendered with emission_mode="nee" since
@@ -120,4 +188,5 @@ PRESETS: Dict[str, Callable] = {
     "full_scale": full_scale,
     "lts": lts_scene,
     "glass": glass_scene,
+    "point": point_light_scene,
 }

@@ -31,6 +31,12 @@ The other thresholds and the wavefront's schedule were tuned on a TPU and
 have not been measured on the card.  Inactive lanes (``active``) get an
 empty ray interval on every path but the brute force and report no hit.
 
+A scene's analytic spheres and planes (``scene.analytic``) are tested in
+plain PyTorch after the triangle query, on every route: the nearer hit
+wins (``Hit.kind`` and ``Hit.prim`` say which primitive; as in JAX,
+inactive lanes are tested too, and callers mask them), and an analytic
+hit before ``max_dist`` occludes an active lane.
+
 Not ported yet (ROADMAP): the watertight test; ``scene_transmittance``
 (transmittance shadows).
 """
@@ -135,17 +141,40 @@ def scene_intersect(scene, origins, directions,
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
         weights, clusters, records = _tables(scene)
-        return sorted_apply(
+        hit = sorted_apply(
             lambda o, d, tm: intersect_rays_pallas(
                 o, d, scene.mesh, tri_weights=weights, t_max=tm,
                 clusters=clusters, records=records),
             scene.mesh, origins, directions, _t_max(origins, active),
             inactive=None if active is None else ~active)
-    if _big_mesh(scene, origins):
-        return _bvh_query(scene, origins, directions,
-                          _t_max(origins, active), active, False, coherent)
-    return intersect.intersect_rays(origins, directions, scene.mesh,
-                                    ray_chunk=ray_chunk)
+    elif _big_mesh(scene, origins):
+        hit = _bvh_query(scene, origins, directions,
+                         _t_max(origins, active), active, False, coherent)
+    else:
+        hit = intersect.intersect_rays(origins, directions, scene.mesh,
+                                       ray_chunk=ray_chunk)
+    return _merge_analytic(scene, hit, origins, directions)
+
+
+def _merge_analytic(scene, hit, origins, directions):
+    """Fold the nearest analytic sphere or plane hit into the triangle
+    hit record (a scene without analytic primitives keeps its record)."""
+    prims = scene.analytic
+    if prims is None or prims.num == 0:
+        return hit
+    from light_transport_tpu_torch.scene.analytic import (
+        KIND_TRI,
+        intersect_analytic,
+    )
+
+    t_a, kind_a, idx_a = intersect_analytic(prims, origins, directions)
+    a_wins = t_a < torch.where(hit.valid, hit.t, float("inf"))
+    return intersect.Hit(
+        t=torch.where(a_wins, t_a, hit.t),
+        tri=torch.where(a_wins, -1, hit.tri),
+        valid=hit.valid | a_wins,
+        kind=torch.where(a_wins, kind_a, KIND_TRI),
+        prim=torch.where(a_wins, idx_a, 0))
 
 
 def scene_occluded(scene, origins, directions, max_dist,
@@ -159,16 +188,30 @@ def scene_occluded(scene, origins, directions, max_dist,
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
         weights, clusters, records = _tables(scene)
-        return sorted_apply(
+        occ = sorted_apply(
             lambda o, d, m: intersect_rays_pallas(
                 o, d, scene.mesh, tri_weights=weights, any_hit=True,
                 max_dist=m, clusters=clusters, records=records),
             scene.mesh, origins, directions,
             _t_max(origins, active, max_dist),
             inactive=None if active is None else ~active)
-    if _big_mesh(scene, origins):
-        return _bvh_query(scene, origins, directions,
-                          _t_max(origins, active, max_dist), active, True,
-                          False)
-    return intersect.occluded(origins, directions, scene.mesh, max_dist,
-                              ray_chunk=ray_chunk)
+    elif _big_mesh(scene, origins):
+        occ = _bvh_query(scene, origins, directions,
+                         _t_max(origins, active, max_dist), active, True,
+                         False)
+    else:
+        occ = intersect.occluded(origins, directions, scene.mesh, max_dist,
+                                 ray_chunk=ray_chunk)
+    prims = scene.analytic
+    if prims is not None and prims.num > 0:
+        from light_transport_tpu_torch.scene.analytic import (
+            intersect_analytic,
+        )
+
+        t_a = intersect_analytic(prims, origins, directions)[0]
+        a_occ = t_a < max_dist
+        if active is not None:
+            # inactive lanes report unoccluded, as the triangle routes do
+            a_occ = a_occ & active
+        occ = occ | a_occ
+    return occ

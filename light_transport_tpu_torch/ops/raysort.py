@@ -61,7 +61,7 @@ def ray_sort_key(origins, directions, lo, hi, inactive=None):
 def sorted_apply(fn, mesh, origins, directions, *per_ray, inactive=None):
     """Run ``fn(origins, directions, *per_ray)`` on coherence-sorted lanes
     (a stable sort) and return its result, a tensor or a tuple of
-    tensors, in input order."""
+    tensors (None entries kept), in input order."""
     if origins.shape[0] < MIN_SORT_LANES:
         return fn(origins, directions, *per_ray)
     lo, hi = scene_bounds(mesh)
@@ -73,5 +73,5 @@ def sorted_apply(fn, mesh, origins, directions, *per_ray, inactive=None):
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     if isinstance(out, torch.Tensor):
         return out[inv]
-    parts = [x[inv] for x in out]
+    parts = [None if x is None else x[inv] for x in out]
     return type(out)(*parts) if hasattr(out, "_fields") else tuple(parts)

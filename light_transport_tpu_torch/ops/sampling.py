@@ -3,8 +3,8 @@
 The counterpart of ``light_transport_tpu.ops.sampling``: the photon half
 (launch specular reflectance, exact Fresnel reflectance, the
 Henyey-Greenstein inverse CDF and the scattering rotation) and the render
-half (concentric disk, cosine hemisphere, the modified-Phong lobe and
-Schlick).  Every function maps over leading batch dims.
+half (concentric disk, cosine and uniform hemisphere, the modified-Phong
+lobe and Schlick).  Every function maps over leading batch dims.
 """
 
 from __future__ import annotations
@@ -40,6 +40,17 @@ def cosine_weighted_hemisphere(normal: torch.Tensor, u0, u1):
     z = torch.where(pos, torch.sqrt(torch.where(pos, z2, 1.0)), 0.0)
     local = torch.stack([dx, dy, z], dim=-1)
     return lm.to_world(local, normal), z * lm.INV_PI
+
+
+def uniform_hemisphere(normal: torch.Tensor, u0, u1):
+    """Uniform direction over the hemisphere about ``normal``, cos = u0.
+    Returns ``(direction, pdf)``, pdf = 1/(2 pi)."""
+    st = torch.sqrt(torch.clamp(1.0 - u0 * u0, min=0.0))
+    phi = 2.0 * math.pi * u1
+    local = torch.stack([st * torch.cos(phi), st * torch.sin(phi), u0],
+                        dim=-1)
+    direction = lm.to_world(local, normal)
+    return direction, torch.full_like(u0, lm.INV_2PI)
 
 
 def sample_phong_lobe(axis: torch.Tensor, shininess, u0, u1):

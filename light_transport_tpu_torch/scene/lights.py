@@ -1,9 +1,11 @@
-"""Area-light table and light-point sampling.
+"""Area-light and point-light tables, and light-point sampling.
 
-The counterpart of ``light_transport_tpu.scene.lights`` (point lights are
-left to a later slice): the table holds the emitting triangles, areas and
-the pick CDF are computed on the host in float64 and then cast, and each
-NEE shadow ray draws a fresh area-uniform point.
+The counterpart of ``light_transport_tpu.scene.lights``: the area table
+holds the emitting triangles, areas and the pick CDF are computed on the
+host in float64 and then cast, and each NEE shadow ray draws a fresh
+area-uniform point.  The point-light table holds delta lights, which have
+no geometry: the path tracer adds their direct term deterministically and
+Whitted Phong-shades toward them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from light_transport_tpu_torch.scene.material import MaterialTable
 
 LIGHT_FIELDS = ("v0", "e1", "e2", "normal", "area", "radiance", "cdf",
                 "total_area", "mat_id")
+POINT_LIGHT_FIELDS = ("position", "intensity", "ambient", "diffuse",
+                      "specular")
 
 
 @dataclasses.dataclass
@@ -67,6 +71,45 @@ class LightTable:
     @property
     def num(self) -> int:
         return self.area.shape[0]
+
+
+@dataclasses.dataclass
+class PointLightTable:
+    """SoA table of point (delta) lights.
+
+    The path tracer adds ``f(wi) * I * cos(theta) / r^2 * V`` per light to
+    its direct term (no pdf and no MIS weight: BSDF sampling cannot hit a
+    delta light); Whitted Phong-shades toward each position with the
+    table's ambient, diffuse and specular light colors."""
+
+    position: torch.Tensor  # (P, 3)
+    intensity: torch.Tensor  # (P, 3) radiant intensity I [power/sr]
+    ambient: torch.Tensor  # (P, 3) Whitted's light colors
+    diffuse: torch.Tensor  # (P, 3)
+    specular: torch.Tensor  # (P, 3)
+
+    @staticmethod
+    def build(positions, intensities, ambient=None, diffuse=None,
+              specular=None, dtype=np.float32,
+              device="cuda") -> "PointLightTable":
+        """``positions`` and ``intensities`` (P, 3)-broadcastable; the
+        light colors default to ones."""
+        pos = np.atleast_2d(np.asarray(positions, dtype=dtype))
+
+        def rows(x):
+            if x is None:
+                return np.ones_like(pos)
+            return np.broadcast_to(
+                np.atleast_2d(np.asarray(x, dtype=dtype)), pos.shape)
+
+        return PointLightTable(*(
+            torch.from_numpy(np.array(a, copy=True)).to(device)
+            for a in (pos, rows(intensities), rows(ambient), rows(diffuse),
+                      rows(specular))))
+
+    @property
+    def num(self) -> int:
+        return self.position.shape[0]
 
 
 def sample_light_points(lights: LightTable, u_pick, u0, u1):

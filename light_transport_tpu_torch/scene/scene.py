@@ -1,9 +1,8 @@
-"""Scene container: mesh, material table, light table, camera, BVH and
-treelet tables.
+"""Scene container: mesh, material table, light table, camera, BVH,
+treelet tables, analytic primitives and point lights.
 
-The counterpart of ``light_transport_tpu.scene.scene``.  Point lights,
-analytic primitives and the watertight mode belong to later slices
-(ROADMAP); the port's Scene has none of them.
+The counterpart of ``light_transport_tpu.scene.scene``.  The watertight
+mode belongs to a later slice (ROADMAP); the port's Scene has none.
 """
 
 from __future__ import annotations
@@ -16,7 +15,11 @@ import torch
 
 from light_transport_tpu_torch.accel.bvh import BVH
 from light_transport_tpu_torch.scene.geometry import TriangleMesh
-from light_transport_tpu_torch.scene.lights import LightTable
+from light_transport_tpu_torch.scene.analytic import AnalyticPrims
+from light_transport_tpu_torch.scene.lights import (
+    LightTable,
+    PointLightTable,
+)
 from light_transport_tpu_torch.scene.material import MaterialTable
 
 # with_bvh(treelet="auto") attaches treelet tables past this triangle
@@ -46,14 +49,19 @@ class Scene:
     # treelet tables for the kernels K5/K5r (ops.treelet_kernel), set by
     # with_treelet(); the dispatch then sends every BVH query through them
     treelet: Optional["TreeletTables"] = None
+    # analytic spheres and planes (scene.analytic), merged into every query
+    analytic: Optional[AnalyticPrims] = None
+    # point (delta) lights, set by with_point_lights()
+    point_lights: Optional[PointLightTable] = None
 
     @staticmethod
     def build(mesh: TriangleMesh, materials: MaterialTable, camera,
-              dtype=np.float32) -> "Scene":
+              dtype=np.float32, analytic=None) -> "Scene":
         return Scene(mesh=mesh, materials=materials,
                      lights=LightTable.build(mesh, materials, dtype=dtype),
                      camera=torch.as_tensor(np.asarray(camera, dtype),
-                                            device=mesh.device))
+                                            device=mesh.device),
+                     analytic=analytic)
 
     @property
     def device(self) -> torch.device:
@@ -80,7 +88,8 @@ class Scene:
         scene = Scene(mesh=ordered, materials=self.materials,
                       lights=LightTable.build(ordered, self.materials,
                                               dtype=dtype),
-                      camera=self.camera, bvh=bvh)
+                      camera=self.camera, bvh=bvh, analytic=self.analytic,
+                      point_lights=self.point_lights)
         if treelet is True or (treelet == "auto" and _auto_treelet(scene)):
             scene = scene.with_treelet()
         return scene
@@ -100,3 +109,13 @@ class Scene:
                 f"{self.mesh.num_triangles:,}")
         return dataclasses.replace(
             self, treelet=build_treelet_tables(self.bvh, T=T))
+
+    def with_point_lights(self, positions, intensities, **phong) -> "Scene":
+        """Attach point (delta) lights on the scene's device, in its dtype:
+        ``positions`` and ``intensities`` (P, 3)-broadcastable; ``phong``
+        passes Whitted's light colors (``ambient``, ``diffuse``,
+        ``specular``) to :class:`PointLightTable`."""
+        dtype = self.camera.cpu().numpy().dtype
+        return dataclasses.replace(self, point_lights=PointLightTable.build(
+            positions, intensities, dtype=dtype, device=self.device,
+            **phong))

@@ -16,7 +16,10 @@ module needs neither JAX nor the JAX package: tests convert with
   node arrays and fused records of ``BVH_FIELDS``; ``max_leaf`` is read
   back from the leaf record's width) and ``treelet`` (``{"T": ...}``:
   the port's treelet tables are the BVH's records cut into treelets of
-  ``T`` nodes).
+  ``T`` nodes), ``analytic`` (``ANALYTIC_FIELDS``) and ``point_lights``
+  (``POINT_LIGHT_FIELDS``).
+* A hit is ``t``, ``tri`` and ``valid``, and ``kind`` and ``prim`` when
+  the scene has analytic primitives.
 """
 
 from __future__ import annotations
@@ -31,8 +34,17 @@ from light_transport_tpu_torch.accel.bvh import (
 )
 from light_transport_tpu_torch.ops.intersect import Hit
 from light_transport_tpu_torch.ops.photon_kernel import KernelState
+from light_transport_tpu_torch.scene.analytic import (
+    ANALYTIC_FIELDS,
+    AnalyticPrims,
+)
 from light_transport_tpu_torch.scene.geometry import MESH_FIELDS, TriangleMesh
-from light_transport_tpu_torch.scene.lights import LIGHT_FIELDS, LightTable
+from light_transport_tpu_torch.scene.lights import (
+    LIGHT_FIELDS,
+    POINT_LIGHT_FIELDS,
+    LightTable,
+    PointLightTable,
+)
 from light_transport_tpu_torch.scene.material import (
     MATERIAL_FIELDS,
     MaterialTable,
@@ -150,13 +162,20 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         bvh = BVH(**b, skip=torch.from_numpy(skip).to(device),
                   node32=node_records32(b["node_rec"]),
                   max_leaf=b["leaf_rec"].shape[1] // 8 - 1)
+    def table(key, cls, fields):
+        if d.get(key) is None:
+            return None
+        return cls(**_tensors(d[key], fields, device))
+
     scene = Scene(
         mesh=TriangleMesh(**_tensors(d["mesh"], MESH_FIELDS, device)),
         materials=MaterialTable(**_tensors(d["materials"], MATERIAL_FIELDS,
                                            device)),
         lights=LightTable(**_tensors(d["lights"], LIGHT_FIELDS, device)),
         camera=_tensor(d["camera"], np.asarray(d["camera"]).dtype, device),
-        bvh=bvh)
+        bvh=bvh, analytic=table("analytic", AnalyticPrims, ANALYTIC_FIELDS),
+        point_lights=table("point_lights", PointLightTable,
+                           POINT_LIGHT_FIELDS))
     if d.get("treelet") is not None:
         scene = scene.with_treelet(T=int(d["treelet"]["T"]))
     return scene
@@ -170,7 +189,12 @@ def scene_to_numpy(scene: Scene) -> dict:
             "bvh": (None if scene.bvh is None
                     else _arrays(scene.bvh, BVH_FIELDS)),
             "treelet": (None if scene.treelet is None
-                        else {"T": scene.treelet.T})}
+                        else {"T": scene.treelet.T}),
+            "analytic": (None if scene.analytic is None
+                         else _arrays(scene.analytic, ANALYTIC_FIELDS)),
+            "point_lights": (
+                None if scene.point_lights is None
+                else _arrays(scene.point_lights, POINT_LIGHT_FIELDS))}
 
 
 def uniforms_from_numpy(u_aa, uniforms, device="cuda"):
@@ -180,11 +204,18 @@ def uniforms_from_numpy(u_aa, uniforms, device="cuda"):
             _tensor(uniforms, np.float32, device))
 
 
-def hit_from_numpy(t, tri, valid, device="cuda") -> Hit:
+def hit_from_numpy(t, tri, valid, kind=None, prim=None,
+                   device="cuda") -> Hit:
+    def opt(a):
+        return None if a is None else _tensor(a, np.int32, device)
+
     return Hit(t=_tensor(t, np.float32, device),
                tri=_tensor(tri, np.int32, device),
-               valid=_tensor(valid, bool, device))
+               valid=_tensor(valid, bool, device), kind=opt(kind),
+               prim=opt(prim))
 
 
 def hit_to_numpy(hit: Hit) -> dict:
-    return {k: getattr(hit, k).cpu().numpy() for k in ("t", "tri", "valid")}
+    """``t``, ``tri``, ``valid``, and ``kind`` and ``prim`` when set."""
+    return {k: getattr(hit, k).cpu().numpy() for k in Hit._fields
+            if getattr(hit, k) is not None}

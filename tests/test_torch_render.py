@@ -310,11 +310,17 @@ def test_unported_options_raise(change):
 
 
 def test_unported_integrators_raise():
+    """Adaptive and BDPT raise; Whitted, ported since, renders through
+    ``api.render``."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
-    for integrator in ("adaptive", "whitted", "bdpt"):
+    for integrator in ("adaptive", "bdpt"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             api.render(scene, cfg, integrator=integrator)
+    from light_transport_tpu_torch.integrators.whitted import render_whitted
+
+    img = api.render(scene, cfg, integrator="whitted")
+    assert torch.equal(img, render_whitted(scene, cfg))
 
 
 def test_interop_scene_hit_and_uniform_round_trip():
@@ -346,6 +352,8 @@ def test_entry_points_default_to_the_card():
     the device of the medium or scene they are given."""
     from light_transport_tpu_torch.ops import photon_kernel
     from light_transport_tpu_torch.scene import cornell, glass
+    from light_transport_tpu_torch.scene.analytic import AnalyticPrims
+    from light_transport_tpu_torch.scene.lights import PointLightTable
     from light_transport_tpu_torch.scene.geometry import TriangleMesh
     from light_transport_tpu_torch.scene.material import MaterialTable
     from light_transport_tpu_torch.scene.medium import LayeredMedium
@@ -359,7 +367,9 @@ def test_entry_points_default_to_the_card():
                interop.medium_from_numpy, interop.tallies_from_numpy,
                interop.kernel_state_from_numpy,
                interop.photon_state_from_numpy, interop.scene_from_numpy,
-               interop.uniforms_from_numpy, interop.hit_from_numpy]
+               interop.uniforms_from_numpy, interop.hit_from_numpy,
+               AnalyticPrims.build, PointLightTable.build,
+               presets.hard_shadow_scene]
     for fn in on_card:
         assert _default_device(fn) == "cuda", fn.__qualname__
     # the entry points follow their medium or scene

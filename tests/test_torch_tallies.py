@@ -151,6 +151,7 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.core.math\n"
         "import light_transport_tpu_torch.core.rng\n"
         "import light_transport_tpu_torch.integrators.path_tracer\n"
+        "import light_transport_tpu_torch.integrators.whitted\n"
         "import light_transport_tpu_torch.ops.dispatch\n"
         "import light_transport_tpu_torch.ops.feature_probes\n"
         "import light_transport_tpu_torch.ops.intersect\n"
