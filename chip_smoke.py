@@ -130,9 +130,27 @@ script exits non-zero without the final result line):
      card against CPU); after 15d's big mesh, that render with one point
      light (one more K5 launch a bounce; the bounce-1 point-light shadow
      rays bitwise the plain walk; a plain re-trace) and Whitted on the
-     big mesh through K5 (a crop against the plain walk).  Comparisons
-     that would take minutes at full width run on a contiguous crop of
-     the render's lanes
+     big mesh through K5 (a crop against the plain walk)
+ 17. the path tracer's remaining modes and the adaptive integrator, each
+     render's walls, kernel launches, host syncs (by place) and device
+     busy time as in 16: after 16e, the glass preset with transmittance
+     shadows through K3 (17a: 15 launches, every one held bitwise, card
+     against CPU) and tests/test_media.py's slab against exp(-sigma_t L);
+     the soft-shadow scene with the Sobol' sampler and a lens through
+     the cull kernel and K4 (17b: the Sobol' build bitwise the CPU's on
+     all 1.6M lanes and timed alone, a crop against the plain
+     intersector), examples/dof_compare.py's Cornell focused and
+     misfocused and tests/test_dof.py's emitter; four progressive Sobol'
+     passes of glass against one render of four times the samples (17c);
+     lts_scene and glass with the watertight test (17d: no kernel, card
+     against CPU, the shared-edge rays); the adaptive integrator on
+     glass with both samplers (17e: the budget exact, every pixel
+     explored; with Sobol' each round's allocation and then the image
+     against the CPU's from the card's allocations); after 16's big
+     mesh, that render with transmittance shadows through K5 (15
+     launches, a crop bitwise the plain walk).  Comparisons that would
+     take minutes at full width run on a contiguous crop of the render's
+     lanes
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -164,6 +182,8 @@ from light_transport_tpu_torch.core.config import (
     PhotonRunConfig,
     RenderConfig,
 )
+from light_transport_tpu_torch.core import rng
+from light_transport_tpu_torch.integrators import adaptive as ad
 from light_transport_tpu_torch.integrators import path_tracer as pt
 from light_transport_tpu_torch.integrators import whitted as tw
 from light_transport_tpu_torch.models.presets import (
@@ -171,6 +191,7 @@ from light_transport_tpu_torch.models.presets import (
     glass_scene,
     hard_shadow_scene,
     hg_sweep,
+    lts_scene,
     multilayer_mismatch,
     point_light_scene,
 )
@@ -178,8 +199,10 @@ from light_transport_tpu_torch.accel import bvh as bvh_mod
 from light_transport_tpu_torch.ops import _build
 from light_transport_tpu_torch.ops import dispatch
 from light_transport_tpu_torch.ops import feature_probes as fp
+from light_transport_tpu_torch.ops import intersect as ops_intersect
 from light_transport_tpu_torch.ops import intersect_kernel as ik
 from light_transport_tpu_torch.ops import photon_kernel as pk
+from light_transport_tpu_torch.ops import qmc
 from light_transport_tpu_torch.ops import raysort
 from light_transport_tpu_torch.ops import treelet_kernel as tk
 from light_transport_tpu_torch.parallel import mesh as pm
@@ -1097,7 +1120,7 @@ def glass_batches(glass):
     """The glass preset's camera rays (every 11th lane inactive) and
     bounce-1 rays, each as (label, o, d, active, any-hit distance)."""
     scene, cfg = glass
-    o, d, u = pt._camera_lanes(scene, cfg, generator(1))
+    o, d, u = pt._camera_lanes(scene, cfg, 1)
     active = torch.ones(o.shape[0], dtype=torch.bool, device=DEV)
     active[::11] = False
     state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0)
@@ -1114,7 +1137,7 @@ def shadow_batches(scene, label):
     n = 16384
     cam_cfg = dataclasses.replace(SOFT_SHADOW_CFG, width=128, height=128,
                                   spp=1)
-    o, d, _ = pt._camera_lanes(scene, cam_cfg, generator(3))
+    o, d, _ = pt._camera_lanes(scene, cam_cfg, 3)
     active = torch.ones(n, dtype=torch.bool, device=DEV)
     active[::9] = False
     g = generator(4)
@@ -1397,7 +1420,7 @@ def phase10(scene):
           f"K4 keeps {blocks} blocks per SM: fewer than 20 warps")
     # re-trace every 97th lane through the plain intersector
     t0 = time.perf_counter()
-    o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
+    o, d, u = pt._camera_lanes(scene, cfg, 0)
     lanes = torch.arange(0, n_lanes, 97, device=DEV)
     with plain_intersector():
         rad_p, _ = pt.trace_paths(scene, cfg, o[lanes], d[lanes], u[lanes])
@@ -1567,7 +1590,7 @@ def big_mesh_batches(scene, cfg):
     camera rays and a list of (label, origins, directions, nearest-hit
     t_max, any-hit t_max, active lanes)."""
     cam_cfg = dataclasses.replace(cfg, spp=1)  # 65,536 camera rays
-    o, d, u = pt._camera_lanes(scene, cam_cfg, generator(11))
+    o, d, u = pt._camera_lanes(scene, cam_cfg, 11)
     n = o.shape[0]
     active = torch.ones(n, dtype=torch.bool, device=DEV)
     active[::9] = False
@@ -2169,7 +2192,7 @@ def phase12(scene, cfg):
         recs[name] = dict(zip(kernels, rs))
     # re-trace every 97th lane of the main path through the plain walk
     t0 = time.perf_counter()
-    o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 0))
+    o, d, u = pt._camera_lanes(scene, cfg, 0)
     lanes = torch.arange(0, n_lanes, 97, device=DEV)
     with plain_treelet():
         rad_p, _ = pt.trace_paths(scene, cfg, o[lanes], d[lanes], u[lanes])
@@ -2849,7 +2872,7 @@ def phase15_split(glass):
     scene, cfg = glass
     scene_cpu, _ = glass_scene(device="cpu")
     split_cfg = dataclasses.replace(cfg, fresnel_mode="split")
-    o, d, u = pt._camera_lanes(scene_cpu, cfg, pt._generator(scene_cpu, 7))
+    o, d, u = pt._camera_lanes(scene_cpu, cfg, 7)
     ik.LAUNCHES["intersect_dense"] = 0
     stats = {}
     t0 = time.perf_counter()
@@ -2904,7 +2927,7 @@ def phase15_split(glass):
     log("15e", f"render_image_split: first call {walls[0]:.4f} s, second "
                f"{walls[1]:.4f} s, host syncs a render {syncs} [{smi()}]")
     wide = dataclasses.replace(cfg, spp=cfg.spp * SPLIT_PASSES)
-    ow, dw, uw = pt._camera_lanes(scene, wide, pt._generator(scene, 11))
+    ow, dw, uw = pt._camera_lanes(scene, wide, 11)
     for c in (cfg, split_cfg):
         if c.fresnel_mode == "split":
             rad_w = pt.trace_paths_split(scene, wide, ow, dw, uw)
@@ -2965,7 +2988,7 @@ def device_busy(fn):
             sum(e.count for e in rows))
 
 
-def render_numbers(label, fn):
+def render_numbers(label, fn, phase=16):
     """A render ``fn()`` twice, its kernel launches counted from 0 on the
     first call; its host syncs on a third and its device busy time under
     torch.profiler on a fourth.  Returns (first image, launches, second
@@ -2979,7 +3002,7 @@ def render_numbers(label, fn):
     wall1 = time.perf_counter() - t0
     launched = {k: v for k, v in {**ik.LAUNCHES, **tk.LAUNCHES}.items()
                 if v}
-    check(bvh_mod.PLAIN_WALKS == 0, f"16 {label}: the plain walk ran")
+    check(bvh_mod.PLAIN_WALKS == 0, f"{phase} {label}: the plain walk ran")
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
@@ -2987,17 +3010,17 @@ def render_numbers(label, fn):
     where = {}
     syncs = count_syncs(fn, where)
     busy, n_launch = device_busy(fn)
-    log(16, f"{label}: first call {wall1:.4f} s, second {wall2:.4f} s; "
+    log(phase, f"{label}: first call {wall1:.4f} s, second {wall2:.4f} s; "
             f"kernel launches {launched}; host syncs {syncs}; device busy "
             f"{busy:.3f} ms under the profiler ({busy / (wall2 * 1e3):.3f} "
             f"of the second call's wall), {n_launch} launches; syncs by "
             f"place " + ", ".join(f"{k} x{v}" for k, v in sorted(
                 where.items())) + f" [{smi()}]", t_all)
-    check(bool(torch.isfinite(img).all()), f"16 {label}: not finite")
+    check(bool(torch.isfinite(img).all()), f"{phase} {label}: not finite")
     return img, launched, wall2
 
 
-def parity(label, got, want, limits):
+def parity(label, got, want, limits, phase=16):
     """Pixels (rows of 3) of ``got`` within ``limits[1]`` of ``want`` in
     every channel, at least a share ``limits[0]`` of them, and a mean
     absolute difference under ``limits[2]``."""
@@ -3007,10 +3030,12 @@ def parity(label, got, want, limits):
     diff = (g - w).abs()
     frac = float((diff <= within).all(dim=1).double().mean())
     mad = float(diff.mean())
-    log(16, f"{label}: {frac:.5f} of {g.shape[0]} pixels within {within}, "
-            f"mean abs diff {mad:.3g}, max {float(diff.max()):.3g}")
-    check(frac >= share, f"16 {label}: {frac} of pixels within {within}")
-    check(mad < mean, f"16 {label}: mean abs diff {mad}")
+    log(phase, f"{label}: {frac:.5f} of {g.shape[0]} pixels within "
+               f"{within}, mean abs diff {mad:.3g}, max "
+               f"{float(diff.max()):.3g}")
+    check(frac >= share, f"{phase} {label}: {frac} of pixels within "
+                         f"{within}")
+    check(mad < mean, f"{phase} {label}: mean abs diff {mad}")
 
 
 def whitted_crop(scene, cfg, lo, n, queue=False):
@@ -3119,19 +3144,18 @@ def phase16c(glass):
            plain6, (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
 
 
-def paths_against_cpu(label, scene, scene_cpu, cfg, seed):
+def paths_against_cpu(label, scene, scene_cpu, cfg, seed, phase=16):
     """The path tracer on the card (every lane) and on the CPU (the first
     CROP_CPU lanes) from uniforms drawn once on the CPU."""
-    o, d, u = pt._camera_lanes(scene_cpu, cfg, pt._generator(scene_cpu,
-                                                             seed))
+    o, d, u = pt._camera_lanes(scene_cpu, cfg, seed)
     rad = pt.trace_paths(scene, cfg, o.to(DEV), d.to(DEV), u.to(DEV))[0]
     t0 = time.perf_counter()
     k = min(CROP_CPU, o.shape[0])
     rad_cpu = pt.trace_paths(scene_cpu, cfg, o[:k], d[:k], u[:k])[0]
-    log(16, f"{label}: CPU trace of lanes 0-{k} of {o.shape[0]} "
-            f"{time.perf_counter() - t0:.2f} s")
+    log(phase, f"{label}: CPU trace of lanes 0-{k} of {o.shape[0]} "
+               f"{time.perf_counter() - t0:.2f} s")
     parity(f"{label} card against CPU (lanes' radiance)", rad[:k], rad_cpu,
-           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN))
+           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN), phase)
 
 
 def phase16d():
@@ -3215,7 +3239,7 @@ def point_light_shadow_rays(scene, cfg):
     camera lanes, as the path tracer makes it: (origins, directions,
     max_dist, active, the dispatch's answer)."""
     cam_cfg = dataclasses.replace(cfg, spp=1)
-    o, d, u = pt._camera_lanes(scene, cam_cfg, generator(11))
+    o, d, u = pt._camera_lanes(scene, cam_cfg, 11)
     state, _ = pt._bounce(scene, cfg, pt.PathState.initial(o, d), u[:, 0], 0,
                           coherent=True)
     calls, fn = [], pt.scene_occluded
@@ -3262,7 +3286,7 @@ def phase16_big(scene, cfg):
             f"({int(act.sum())} active), {n_hit} occluded; bitwise equal "
             f"to the plain walk in the mask and per-ray visits")
     n_lanes = cfg.width * cfg.height * cfg.spp
-    o, d, u = pt._camera_lanes(lit, cfg, pt._generator(lit, 0))
+    o, d, u = pt._camera_lanes(lit, cfg, 0)
     lanes = torch.arange(0, n_lanes, 97, device=DEV)
     with plain_treelet():
         rad_p, _ = pt.trace_paths(lit, cfg, o[lanes], d[lanes], u[lanes])
@@ -3290,6 +3314,459 @@ def phase16_big(scene, cfg):
            (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN))
     wall = time.perf_counter() - t0
     log(16, "16d big mesh done", t0)
+    return wall
+
+
+# --------------------------------------------------------------------------
+# phase 17: transmittance shadows, the Sobol' sampler and the thin lens,
+# progressive Sobol' passes, the watertight test, the adaptive integrator
+# --------------------------------------------------------------------------
+
+# tests/test_media.py's slab: extinction and thickness
+SLAB_SIGMA_A, SLAB_SIGMA_S, SLAB_T = (2.0, 0.5, 0.1), 0.3, 0.5
+SLAB_LANES = 65_536
+SOBOL_SOFT_CFG = dataclasses.replace(SOFT_SHADOW_CFG, sampler="sobol",
+                                     aperture=0.1, focus_distance=0.0)
+# examples/dof_compare.py: the aperture and the two focus distances (on
+# the cone, and in front of everything)
+DOF_APERTURE, DOF_FOCUS = 0.35, (8.0, 2.5)
+# tests/test_qmc.py:123-140's tolerance on the progressive samples
+PROG_ATOL = 1e-6
+PROG_PASSES = 4
+ADAPTIVE_ROUNDS = 4
+
+
+def transmittance_cfg(cfg):
+    return dataclasses.replace(cfg, shadow_mode="transmittance")
+
+
+def slab_scene(sigma_a=(0.0, 0.0, 0.0), sigma_s=0.0, slab=True,
+               emission=50.0):
+    """tests/test_media.py's shadow scene: a diffuse floor at y = 0, a
+    small emitter at y = 3 facing down, and a glass slab (ior 1) spanning
+    y in [1, 1.5] between them."""
+    half, s = 50.0, 0.1
+    tris = [quad_triangles((-half, 0.0, -half), (-half, 0.0, half),
+                           (half, 0.0, half), (half, 0.0, -half)),
+            quad_triangles((-s, 3.0, -s), (s, 3.0, -s), (s, 3.0, s),
+                           (-s, 3.0, s))]
+    mat_id, is_light = [0, 0, 1, 1], [0, 0, 1, 1]
+    if slab:
+        tris += [quad_triangles((-half, 1.0, -half), (half, 1.0, -half),
+                                (half, 1.0, half), (-half, 1.0, half)),
+                 quad_triangles((-half, 1.5, -half), (-half, 1.5, half),
+                                (half, 1.5, half), (half, 1.5, -half))]
+        mat_id += [2, 2, 2, 2]
+        is_light += [0, 0, 0, 0]
+    mesh = TriangleMesh.build(np.concatenate(tris),
+                              np.asarray(mat_id, np.int32),
+                              np.asarray(is_light, bool), device=DEV)
+    glass = Material(color=presets.WHITE, ior=1.0, transmission=1.0,
+                     is_diffuse=False, is_mirror=False,
+                     sigma_a=tuple(sigma_a), sigma_s=sigma_s)
+    mats = MaterialTable.build([
+        Material(color=presets.WHITE),
+        Material(color=presets.WHITE, emission=emission), glass],
+        device=DEV)
+    return Scene.build(mesh, mats, camera=[0.0, 5.0, 0.0])
+
+
+def slab_direct(scene, n=SLAB_LANES, seed=2):
+    """Bounce-0 NEE at the floor under the slab (depth 1: the direct term
+    alone), averaged over ``n`` lanes."""
+    cfg = RenderConfig(width=1, height=1, spp=1, max_depth=1,
+                       shadow_mode="transmittance")
+    o = torch.tensor([[0.0, 0.8, 0.0]], device=DEV).repeat(n, 1)
+    d = torch.tensor([[0.0, -1.0, 0.0]], device=DEV).repeat(n, 1)
+    u = rng.path_uniforms(generator(seed), n, 1)
+    return pt.trace_paths(scene, cfg, o, d, u)[0].double().mean(dim=0)
+
+
+def phase17_slab():
+    """17a: tests/test_media.py's slab on the card against the closed form
+    exp(-sigma_t L): a vertical segment through it, one that ends inside
+    it, and the floor's direct light through it against the clear slab's."""
+    t0 = time.perf_counter()
+    scene = slab_scene(SLAB_SIGMA_A, SLAB_SIGMA_S)
+    sig_t = np.asarray(SLAB_SIGMA_A) + SLAB_SIGMA_S
+    o = torch.tensor([[0.0, 0.01, 0.0]] * 3, device=DEV)
+    d = torch.tensor([[0.0, 1.0, 0.0]] * 3, device=DEV)
+    tr = dispatch.scene_transmittance(
+        scene, o, d, torch.tensor([2.8, 1.19, 0.5], device=DEV)).cpu()
+    want = np.stack([np.exp(-sig_t * SLAB_T), np.exp(-sig_t * 0.2),
+                     np.ones(3)])
+    err = float(np.abs(tr.numpy() / want - 1.0).max())
+    clear = slab_direct(slab_scene())
+    tinted = slab_direct(slab_scene(SLAB_SIGMA_A, SLAB_SIGMA_S))
+    ratio = (tinted / clear).cpu().numpy()
+    r_err = float(np.abs(ratio / np.exp(-sig_t * SLAB_T) - 1.0).max())
+    log(17, f"17a slab (tests/test_media.py): transmittance through it "
+            f"{tr[0].tolist()}, ending 0.2 inside {tr[1].tolist()}, short "
+            f"{tr[2].tolist()}: max rel err against exp(-sigma_t L) "
+            f"{err:.3g} (limit 1e-3); floor's direct light through it over "
+            f"the clear slab's on {SLAB_LANES} lanes {ratio.tolist()}, max "
+            f"rel err {r_err:.3g} (limit 5e-3) [{smi()}]", t0)
+    check(err <= 1e-3, f"17a slab: transmittance off by {err}")
+    check(r_err <= 5e-3, f"17a slab: direct light ratio off by {r_err}")
+
+
+def phase17a(glass):
+    """17a: the glass preset with transmittance shadows through K3 (each
+    bounce one nearest-hit query, three march queries and the close-out),
+    every K3 launch held bitwise, the card against the CPU; then the
+    slab."""
+    scene, cfg = glass
+    tcfg = transmittance_cfg(cfg)
+    label = (f"17a glass {tcfg.width}x{tcfg.height}x{tcfg.spp} depth "
+             f"{tcfg.max_depth}, transmittance shadows")
+    img, launched, _ = render_numbers(
+        label, lambda: lt.render(scene, tcfg, seed=0), 17)
+    k3 = launched.get("intersect_dense", 0)
+    check(k3 == 5 * tcfg.max_depth, f"17a glass: {k3} K3 launches, "
+                                    f"expected {5 * tcfg.max_depth}")
+    check(set(launched) == {"intersect_dense"}, f"17a glass: {launched}")
+    opaque = lt.render(scene, cfg, seed=0)
+    log(17, f"17a glass image mean {float(img.mean()):.5f}, with opaque "
+            f"shadows {float(opaque.mean()):.5f}")
+    check(float(img.mean()) > float(opaque.mean()),
+          "17a glass: transmittance let no light through the glass")
+    t0 = time.perf_counter()
+    with Recorder("intersect_dense") as rec:
+        lt.render(scene, tcfg, seed=0)
+        torch.cuda.synchronize()
+    n, ms, pairs = rec.summary()
+    log(17, f"17a glass: {n} K3 launches, {ms:.4f} ms mean by CUDA events, "
+            f"admitted pairs per launch {pairs}", t0)
+    rec.hold_every("17a glass transmittance")
+    paths_against_cpu("17a glass transmittance", scene,
+                      glass_scene(device="cpu")[0], tcfg, 7, phase=17)
+    phase17_slab()
+
+
+def phase17_big(scene, cfg):
+    """17a: the big mesh with transmittance shadows through K5 (five
+    sorted launches a bounce), a crop of its lanes through K5 and through
+    the plain walk bitwise, and the render's own lanes there."""
+    t0 = time.perf_counter()
+    tcfg = transmittance_cfg(cfg)
+    img, launched, _ = render_numbers(
+        f"17a big mesh {tcfg.width}x{tcfg.height}x{tcfg.spp} depth "
+        f"{tcfg.max_depth}, transmittance shadows",
+        lambda: lt.render(scene, tcfg, seed=0), 17)
+    k5 = launched.get("treelet_walk", 0)
+    check(k5 == 5 * tcfg.max_depth,
+          f"17a big mesh: {k5} K5 launches, expected {5 * tcfg.max_depth}")
+    check(set(launched) == {"treelet_walk"}, f"17a big mesh: {launched}")
+    o, d, u = pt._camera_lanes(scene, tcfg, 0)
+    lo = (tcfg.height // 2) * tcfg.width
+    sl = slice(lo, lo + CROP_BIG)
+    rad_k = pt.trace_paths(scene, tcfg, o[sl], d[sl], u[sl])[0]
+    with plain_treelet():
+        rad_p = pt.trace_paths(scene, tcfg, o[sl], d[sl], u[sl])[0]
+    check(bvh_mod.PLAIN_WALKS > 0, "17a big mesh: the crop ran no plain walk")
+    same = torch.equal(rad_k, rad_p)
+    _, samples = pt.render_image(scene, tcfg, seed=0, return_samples=True)
+    rad_r = samples.permute(2, 0, 1, 3).reshape(-1, 3)[sl]
+    log(17, f"17a big mesh: lanes {lo}-{lo + CROP_BIG} (a crop) through K5 "
+            f"and through the plain walk bitwise equal {same}; image mean "
+            f"{float(img.mean()):.5f}")
+    check(same, "17a big mesh: the crop differs from the plain walk")
+    parity("17a big mesh render against its crop re-traced", rad_r, rad_k,
+           (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN), 17)
+    log(17, "17a big mesh done", t0)
+    return time.perf_counter() - t0
+
+
+def sobol_build(cfg, seed, device):
+    """The Sobol' render's random inputs: u_aa, uniforms and lens points."""
+    bits = qmc.seed_bits(seed)
+    u_aa, u = qmc.render_uniforms(bits, cfg.height, cfg.width, cfg.spp,
+                                  cfg.max_depth, device=device)
+    lens = qmc.render_pair(bits, cfg.height, cfg.width, cfg.spp,
+                           qmc.LENS_PAIR, device=device)
+    return u_aa, u, lens
+
+
+def region_mse(img, ref):
+    """examples/dof_compare.py's MSE against the pinhole image over the
+    centre (the cone) and the border (the walls)."""
+    d2 = ((img - ref) ** 2).mean(dim=-1)
+    h, w = d2.shape
+    border = torch.ones((h, w), dtype=torch.bool, device=d2.device)
+    border[h // 4: 3 * h // 4, w // 4: 3 * w // 4] = False
+    return (float(d2[h // 3: 2 * h // 3, w // 3: 2 * w // 3].mean()),
+            float(d2[border].mean()))
+
+
+def emitter_scene(half=1.2):
+    """tests/test_dof.py's scene: a bright square emitter at z = 0 facing a
+    camera at z = 6, on black."""
+    quad = quad_triangles((-half, -half, 0.0), (half, -half, 0.0),
+                          (half, half, 0.0), (-half, half, 0.0))
+    mesh = TriangleMesh.build(quad, np.zeros(2, np.int32),
+                              np.asarray([True, True]), device=DEV)
+    mats = MaterialTable.build(
+        [Material(color=presets.WHITE, emission=50.0)], device=DEV)
+    return Scene.build(mesh, mats, camera=[0.0, 0.0, 6.0])
+
+
+def phase17b(soft):
+    """17b: the soft-shadow scene with the Sobol' sampler and the lens
+    through the cull kernel and K4; the card's Sobol' build bitwise the
+    CPU's on every lane and timed alone; a crop against the plain
+    intersector; the depth of field of examples/dof_compare.py and of
+    tests/test_dof.py."""
+    cfg = SOBOL_SOFT_CFG
+    n = cfg.width * cfg.height * cfg.spp
+    img, launched, _ = render_numbers(
+        f"17b soft shadow {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth}, sampler sobol, aperture {cfg.aperture}",
+        lambda: lt.render(soft, cfg, seed=0), 17)
+    for name in ("tile_cull", "intersect_gather"):
+        check(launched.get(name, 0) == 2 * cfg.max_depth,
+              f"17b: {launched}, expected {2 * cfg.max_depth} {name}")
+    t0 = time.perf_counter()
+    with Recorder("intersect_gather") as rec, CullRecorder() as cull:
+        lt.render(soft, cfg, seed=0)
+        torch.cuda.synchronize()
+    n_k4, k4_ms, pairs = rec.summary()
+    n_c, cull_ms = cull.summary()
+    log(17, f"17b K4: {n_k4} launches, {k4_ms:.3f} ms mean by CUDA events, "
+            f"admitted pairs per launch {pairs}; cull: {n_c} launches, "
+            f"{cull_ms:.4f} ms mean [{smi()}]", t0)
+    del rec, cull
+    t0 = time.perf_counter()
+    build = functools.partial(sobol_build, cfg, 0, DEV)
+    ms = cuda_ms(build, 3)
+    busy, n_launch = device_busy(build)
+    card = [x.cpu() for x in build()]
+    t1 = time.perf_counter()
+    host = sobol_build(cfg, 0, "cpu")
+    cpu_s = time.perf_counter() - t1
+    same = [torch.equal(a, b) for a, b in zip(card, host)]
+    log(17, f"17b the Sobol' build alone ({n} lanes: jitter, "
+            f"{cfg.max_depth} x {rng.NUM_U} path uniforms, lens): "
+            f"{ms:.3f} ms by CUDA events, {busy:.3f} ms busy under the "
+            f"profiler, {n_launch} launches; on the CPU {cpu_s:.2f} s; card "
+            f"bitwise the CPU (jitter, uniforms, lens) {same} [{smi()}]", t0)
+    check(all(same), f"17b: the card's Sobol' points differ from the CPU's")
+    o, d, u = pt._camera_lanes(soft, cfg, 0)
+    check(torch.equal(u.cpu(), host[1]), "17b: the render's uniforms differ")
+    lo = (cfg.height * 9 // 20) * cfg.width  # from row 180 of 400
+    t0 = time.perf_counter()
+    with plain_intersector():
+        rad_p = pt.trace_paths(soft, cfg, o[lo:lo + CROP_SOFT],
+                               d[lo:lo + CROP_SOFT], u[lo:lo + CROP_SOFT])[0]
+    log(17, f"17b plain intersector on lanes {lo}-{lo + CROP_SOFT} (a crop)",
+        t0)
+    _, samples = pt.render_image(soft, cfg, seed=0, return_samples=True)
+    rad_k = samples.permute(2, 0, 1, 3).reshape(-1, 3)[lo:lo + CROP_SOFT]
+    parity("17b kernels against the plain intersector (crop)", rad_k, rad_p,
+           (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN), 17)
+    del o, d, u, samples, card, host
+    # examples/dof_compare.py's Cornell configuration
+    scene, dcfg = cornell_box_scene(width=150, height=150, spp=32,
+                                    max_depth=3, device=DEV)
+    dcfg = dataclasses.replace(dcfg, sampler="sobol")
+    ref, _, _ = render_numbers(
+        f"17b Cornell {dcfg.width}x{dcfg.height}x{dcfg.spp} depth "
+        f"{dcfg.max_depth} sobol, pinhole", lambda: lt.render(scene, dcfg),
+        17)
+    mse = {}
+    for focus in DOF_FOCUS:
+        c = dataclasses.replace(dcfg, aperture=DOF_APERTURE,
+                                focus_distance=focus)
+        img_f, _, _ = render_numbers(
+            f"17b Cornell sobol, aperture {DOF_APERTURE}, focus {focus}",
+            lambda c=c: lt.render(scene, c), 17)
+        mse[focus] = region_mse(img_f, ref)
+    sharp, blur = mse[DOF_FOCUS[0]], mse[DOF_FOCUS[1]]
+    log(17, f"17b depth of field against the pinhole (centre, border MSE): "
+            f"focus {DOF_FOCUS[0]} {sharp}, focus {DOF_FOCUS[1]} {blur}")
+    check(blur[0] > 5 * sharp[0] and blur[1] > 5 * sharp[1],
+          f"17b: the misfocused render is not blurred: {mse}")
+    # tests/test_dof.py:40-66's footprints, with the Sobol' points (the
+    # uniform stream's misfocused footprint sits at the rule's edge: 150
+    # and 151 pixels against 1.5 x 100 on the CPU)
+    em = emitter_scene()
+    ecfg = RenderConfig(width=48, height=48, spp=16, max_depth=1,
+                        sampler="sobol")
+
+    def lit(**kw):
+        im = lt.render(em, dataclasses.replace(ecfg, **kw), seed=0)
+        return int((im.mean(dim=-1) > 0.05).sum())
+
+    base, focused = lit(), lit(aperture=0.25, focus_distance=6.0)
+    blurred = lit(aperture=0.25, focus_distance=2.0)
+    wider = lit(aperture=0.5, focus_distance=2.0)
+    log(17, f"17b tests/test_dof.py's emitter, lit pixels: pinhole {base}, "
+            f"focused {focused}, misfocused {blurred}, wider {wider}")
+    check(base > 20 and abs(focused - base) < 0.3 * base
+          and blurred > 1.5 * base and wider > blurred,
+          "17b: the emitter's footprints break tests/test_dof.py's rule")
+
+
+def phase17c(glass):
+    """17c: PROG_PASSES progressive Sobol' passes of glass against one
+    Sobol' render of PROG_PASSES times the samples, regrouped into passes:
+    equal up to the per-pass clip."""
+    scene, cfg = glass
+    c = dataclasses.replace(cfg, sampler="sobol")
+    wide = dataclasses.replace(c, spp=c.spp * PROG_PASSES)
+    zero_counts()
+    t0 = time.perf_counter()
+    prog = pt.render_progressive(scene, c, seed=3, n_passes=PROG_PASSES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = ik.LAUNCHES["intersect_dense"]
+    _, samples = pt.render_image(scene, wide, seed=3, return_samples=True)
+    want = pass_images(samples, PROG_PASSES).mean(dim=0)
+    err = float((prog - want).abs().max())
+    log(17, f"17c progressive Sobol' glass, {PROG_PASSES} passes of "
+            f"{c.spp} spp: {wall:.4f} s, K3 launches {k3}; against one "
+            f"{wide.spp}-spp render in {PROG_PASSES} clipped passes max abs "
+            f"diff {err:.3g} (limit {PROG_ATOL}); means "
+            f"{float(prog.mean()):.5f} and {float(want.mean()):.5f}")
+    check(k3 == PROG_PASSES * 2 * c.max_depth, f"17c: {k3} K3 launches")
+    check(err <= PROG_ATOL, f"17c: progressive passes differ by {err}")
+
+
+def fan_rays(device):
+    """tests/test_intersect.py:141-166: 24 fan triangles and rays at every
+    shared edge (four radii) and at the shared centre."""
+    ang = np.linspace(0, 2 * np.pi, 25)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+    tris = np.stack([np.zeros((24, 3)), rim[:-1], rim[1:]], axis=1)
+    mesh = TriangleMesh.build(tris.astype(np.float32),
+                              np.zeros(24, np.int32), device=device)
+    radii = np.asarray([1e-4, 0.25, 0.5 + 1e-7, 0.999], np.float32)
+    a = ang[:-1]
+    pts = np.concatenate(
+        [np.stack([r * np.cos(a), r * np.sin(a), np.zeros_like(a)], -1)
+         for r in radii] + [np.zeros((1, 3))]).astype(np.float32)
+    cam = np.asarray([0.3, -0.2, 3.0], np.float32)
+    dd = pts - cam
+    d = dd / np.linalg.norm(dd, axis=1, keepdims=True)
+    o = np.tile(cam, (len(pts), 1))
+    return (mesh, torch.from_numpy(o).to(device),
+            torch.from_numpy(d.astype(np.float32)).to(device))
+
+
+def phase17d():
+    """17d: watertight scenes (the brute force in plain torch, no kernel):
+    lts_scene 256x256x8 and glass 100x100x4, the card against the CPU on a
+    crop; the shared-edge crack check on the card."""
+    scenes = {
+        "lts_scene 256x256x8": lambda dev: lts_scene(
+            width=256, height=256, spp=8, device=dev),
+        "glass 100x100x4": lambda dev: glass_scene(device=dev),
+    }
+    for name, make in scenes.items():
+        scene, cfg = make(DEV)
+        wt = scene.with_watertight()
+        img, launched, _ = render_numbers(
+            f"17d {name} depth {cfg.max_depth}, watertight",
+            lambda: lt.render(wt, cfg, seed=0), 17)
+        check(not launched, f"17d {name}: kernels launched {launched}")
+        mt = lt.render(scene, cfg, seed=0)
+        log(17, f"17d {name}: image mean {float(img.mean()):.5f}, "
+                f"Möller–Trumbore's {float(mt.mean()):.5f}, mean abs diff "
+                f"{float((img - mt).abs().mean()):.3g}")
+        paths_against_cpu(f"17d {name} watertight", wt,
+                          make("cpu")[0].with_watertight(), cfg, 5,
+                          phase=17)
+    mesh, o, d = fan_rays(DEV)
+    hw = ops_intersect.intersect_rays_watertight(o, d, mesh)
+    hm = ops_intersect.intersect_rays(o, d, mesh)
+    log(17, f"17d shared-edge rays (tests/test_intersect.py): watertight "
+            f"hits {int(hw.valid.sum())} of {o.shape[0]}, Möller–Trumbore "
+            f"{int(hm.valid.sum())}")
+    check(bool(hw.valid.all()), "17d: a shared-edge ray fell through")
+
+
+@contextlib.contextmanager
+def adaptive_allocs(pinned=None):
+    """Records each round's weights and allocation of the adaptive renders
+    made meanwhile (``integrators/adaptive._integer_alloc``), or with
+    ``pinned`` hands the rounds those allocations in turn."""
+    real, seen = ad._integer_alloc, []
+
+    def alloc(w, budget):
+        a = real(w, budget) if pinned is None else pinned[len(seen)][1].to(
+            w.device)
+        seen.append((w, a))
+        return a
+
+    ad._integer_alloc = alloc
+    try:
+        yield seen
+    finally:
+        ad._integer_alloc = real
+
+
+def phase17e():
+    """17e: examples/adaptive_compare.py's configuration, glass 96x96, 16
+    spp, depth 5 in ADAPTIVE_ROUNDS rounds, both samplers: the budget
+    exact, every pixel explored.  With Sobol' the card against the CPU:
+    each round's allocation from the card's weights, then the image from
+    the card's allocations (a free-running CPU render allocates from its
+    own float sums, which differ from the card's in the last bits; a
+    round's rounded cumulative targets turn such a difference into other
+    sample counts)."""
+    scene, cfg = glass_scene(96, 96, 16, 5, device=DEV)
+    for sampler in ("uniform", "sobol"):
+        c = dataclasses.replace(cfg, sampler=sampler)
+        img, launched, _ = render_numbers(
+            f"17e adaptive glass {c.width}x{c.height}x{c.spp} depth "
+            f"{c.max_depth}, {ADAPTIVE_ROUNDS} rounds, sampler {sampler}",
+            lambda: lt.render(scene, c, seed=0, integrator="adaptive"), 17)
+        k3 = launched.get("intersect_dense", 0)
+        check(k3 == ADAPTIVE_ROUNDS * 2 * c.max_depth,
+              f"17e {sampler}: {k3} K3 launches")
+        with adaptive_allocs() as allocs:
+            img, counts = ad.render_adaptive(scene, c, 0, ADAPTIVE_ROUNDS,
+                                             return_counts=True)
+        total, least = int(counts.sum()), int(counts.min())
+        log(17, f"17e {sampler}: samples {total} (budget "
+                f"{c.width * c.height * c.spp}), per pixel {least} to "
+                f"{int(counts.max())}; image mean {float(img.mean()):.5f}")
+        check(total == c.width * c.height * c.spp, f"17e: budget {total}")
+        check(least >= c.spp // ADAPTIVE_ROUNDS, f"17e: a pixel got {least}")
+        if sampler != "sobol":
+            continue
+        budget = total // ADAPTIVE_ROUNDS
+        for r, (w, a) in enumerate(allocs):
+            a_cpu = ad._integer_alloc(w.cpu(), budget)
+            off = (a_cpu - a.cpu()).abs()
+            log(17, f"17e round {r}: the CPU's allocation from the card's "
+                    f"weights equal on {float((off == 0).double().mean()):.5f}"
+                    f" of pixels, off by at most {int(off.max())}")
+            check(int(a_cpu.sum()) == budget and int(off.max()) <= 1
+                  and float((off == 0).double().mean()) >= 0.99,
+                  f"17e round {r}: the allocations differ")
+        t0 = time.perf_counter()
+        scene_cpu, _ = glass_scene(96, 96, 16, 5, device="cpu")
+        with adaptive_allocs(allocs):
+            img_cpu, counts_cpu = ad.render_adaptive(
+                scene_cpu, c, 0, ADAPTIVE_ROUNDS, return_counts=True)
+        log(17, f"17e sobol on the CPU from the card's allocations "
+                f"{time.perf_counter() - t0:.2f} s; count maps equal "
+                f"{torch.equal(counts.cpu(), counts_cpu)}")
+        check(torch.equal(counts.cpu(), counts_cpu), "17e: count maps differ")
+        parity("17e adaptive sobol card against CPU", img, img_cpu,
+               (0.99, CPU_WITHIN, CPU_MEAN), 17)
+
+
+def phase17(glass, soft):
+    """17a-17e but the big mesh (phase17_big, after phase 12)."""
+    t0 = time.perf_counter()
+    phase17a(glass)
+    phase17b(soft)
+    phase17c(glass)
+    phase17d()
+    phase17e()
+    wall = time.perf_counter() - t0
+    log(17, "17a-17e done", t0)
     return wall
 
 
@@ -3333,6 +3810,7 @@ def main():
                    ("tile_cull", "intersect_gather"))
     phase15_split(glass)
     wall16 = phase16(glass, soft)
+    wall17 = phase17(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -3386,6 +3864,8 @@ def main():
                    ("treelet_walk",))
     wall16 += phase16_big(scene, cfg)
     log(16, f"phase 16 in all {wall16:.2f} s")
+    wall17 += phase17_big(scene, cfg)
+    log(17, f"phase 17 in all {wall17:.2f} s")
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(

@@ -1,5 +1,5 @@
-"""Public API: the photon engine and the camera render (path tracer and
-Whitted)."""
+"""Public API: the photon engine and the camera render (path tracer,
+adaptive path tracer and Whitted)."""
 
 from __future__ import annotations
 
@@ -24,14 +24,16 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
     """Render a camera image ``(H, W, 3)`` on the scene's device.
     ``integrator``: ``"path"``, the NEE path tracer
     (``cfg.fresnel_mode="split"`` renders through the both-branch Fresnel
-    tracer), or ``"whitted"``, the Whitted ray tracer (one ray a pixel).
-    The JAX package's adaptive and BDPT integrators are not ported yet
-    (ROADMAP)."""
-    if integrator in ("adaptive", "bdpt"):
+    tracer), ``"adaptive"``, the path tracer with the budget spent over
+    variance-driven rounds, or ``"whitted"``, the Whitted ray tracer (one
+    ray a pixel).  The Sobol' sampler and the thin lens apply to the path
+    and adaptive integrators.  The JAX package's BDPT integrator is not
+    ported yet (ROADMAP)."""
+    if integrator == "bdpt":
         raise NotImplementedError(
-            f"integrator={integrator!r} is not ported yet (ROADMAP); the "
-            "port renders integrator='path' and 'whitted'")
-    if integrator not in ("path", "whitted"):
+            "integrator='bdpt' is not ported yet (ROADMAP); the port renders "
+            "integrator='path', 'adaptive' and 'whitted'")
+    if integrator not in ("path", "adaptive", "whitted"):
         raise ValueError(f"unknown integrator: {integrator}")
     cfg = cfg or RenderConfig()
     if integrator == "whitted":
@@ -42,13 +44,26 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
                 f"(got integrator={integrator!r})")
         if cfg.aperture > 0.0:
             raise ValueError(
-                "aperture > 0 (thin-lens DOF) is supported by the path "
-                f"integrator only (got integrator={integrator!r})")
+                "aperture > 0 (thin-lens DOF) is supported by the path and "
+                f"adaptive integrators only (got integrator={integrator!r})")
     if cfg.emission_mode == "mis" and cfg.nee_mode != "one":
         raise ValueError(
             "emission_mode='mis' requires nee_mode='one' (the power "
             "heuristic needs the NEE sampling density)")
     seed = cfg.seed if seed is None else seed
+    if integrator == "adaptive":
+        from light_transport_tpu_torch.integrators.adaptive import (
+            render_adaptive,
+        )
+
+        if cfg.fresnel_mode == "split":
+            raise ValueError(
+                "integrator='adaptive' supports fresnel_mode='stochastic' "
+                "only (its rounds trace through trace_paths)")
+        # the largest round count of 4 or fewer that divides spp
+        rounds = next(r for r in (4, 3, 2, 1) if cfg.spp % r == 0)
+        return render_adaptive(scene, cfg, seed, rounds=rounds,
+                               ray_chunk=ray_chunk)
     if integrator == "whitted":
         from light_transport_tpu_torch.integrators.whitted import (
             render_whitted,

@@ -13,9 +13,8 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Camera-render settings; the screen bounds derive from the aspect
-    ratio.  The port renders ``sampler="uniform"``, ``aperture=0``,
-    ``shadow_mode="opaque"`` and ``compact_tail=False``; the other values
-    raise at render time."""
+    ratio.  The port renders every value but ``compact_tail=True``, which
+    raises at render time."""
 
     width: int = 150
     height: int = 150
@@ -30,12 +29,17 @@ class RenderConfig:
     # 'one': one shadow ray to a random area-weighted light point;
     # 'all': one shadow ray per light triangle at its centroid
     nee_mode: str = "one"
+    # 'opaque': any surface blocks a shadow ray; 'transmittance': glass
+    # attenuates it (ops.dispatch.scene_transmittance)
     shadow_mode: str = "opaque"
     # 'stochastic': one Fresnel branch sampled per transmissive hit;
     # 'split': both followed (path_tracer.trace_paths_split)
     fresnel_mode: str = "stochastic"
+    # 'uniform': torch.Generator draws; 'sobol': ops.qmc's scrambled points
     sampler: str = "uniform"
     compact_tail: bool = False
+    # thin-lens radius (0: a pinhole) and focus distance (0 or less: the
+    # screen plane)
     aperture: float = 0.0
     focus_distance: float = 0.0
     seed: int = 0

@@ -13,14 +13,20 @@ Russian roulette after ``rr_start``.
 
 ``fresnel_mode="split"`` follows both Fresnel branches of a transmissive
 hit (:func:`trace_paths_split`); :func:`render_progressive` averages
-renders of per-pass seeds.
+renders of per-pass seeds (with the Sobol' sampler, one point set over
+all passes).
+
+``shadow_mode="transmittance"`` attenuates every shadow ray by
+``ops.dispatch.scene_transmittance`` instead of blocking it at glass.
+``sampler="sobol"`` fills the same uniform tensors from ``ops.qmc``'s
+scrambled Sobol' points, and ``aperture > 0`` moves each camera ray's
+origin over a thin lens.
 
 Point lights (``Scene.point_lights``) add a deterministic direct term at
 each NEE vertex, and analytic spheres and planes shade through
 ``scene.analytic.surface_attrs``.
 
-Not ported yet (ROADMAP): tail compaction, the Sobol sampler, thin-lens
-apertures, transmittance shadows.
+Not ported yet (ROADMAP): tail compaction.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ import torch
 from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.core import rng
 from light_transport_tpu_torch.core.config import RenderConfig
-from light_transport_tpu_torch.ops import dispatch, lanestack, sampling
+from light_transport_tpu_torch.ops import dispatch, lanestack, qmc, sampling
 from light_transport_tpu_torch.ops.dispatch import (
     scene_intersect,
     scene_occluded,
+    scene_transmittance,
 )
 from light_transport_tpu_torch.scene.analytic import surface_attrs
 from light_transport_tpu_torch.scene.lights import (
@@ -117,6 +124,20 @@ def _where3(cond, a, b):
     return torch.where(cond[:, None], a, b)
 
 
+def _shadowed(scene, cfg, contrib, shadow_o, wi, max_dist, active,
+              ray_chunk):
+    """``contrib`` seen along the shadow segment: zero where it is blocked,
+    or by ``cfg.shadow_mode="transmittance"`` attenuated by what it
+    crosses."""
+    if cfg.shadow_mode == "transmittance":
+        return contrib * scene_transmittance(scene, shadow_o, wi, max_dist,
+                                             ray_chunk=ray_chunk,
+                                             active=active)
+    blk = scene_occluded(scene, shadow_o, wi, max_dist, ray_chunk=ray_chunk,
+                         active=active)
+    return _where3(blk, torch.zeros_like(contrib), contrib)
+
+
 def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
                   diffuse_rgb, spec_rgb, shin, f_diffuse, nee_active,
                   ray_chunk):
@@ -140,9 +161,9 @@ def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
         f_i = _where3(is_glossy, sampling.glossy_f(
             diffuse_rgb, spec_rgb, shin, m_dir, wi_i), f_diffuse)
         contrib = plt_.intensity[li] * f_i * (cos_i / d2)[:, None]
-        blk = scene_occluded(scene, shadow_o, wi_i, dist_i * (1.0 - 1e-3),
-                             ray_chunk=ray_chunk, active=nee_active)
-        direct = direct + _where3(blk, torch.zeros_like(contrib), contrib)
+        direct = direct + _shadowed(scene, cfg, contrib, shadow_o, wi_i,
+                                    dist_i * (1.0 - 1e-3), nee_active,
+                                    ray_chunk)
     return direct
 
 
@@ -161,11 +182,9 @@ def _area_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy, diffuse_rgb,
             f_i = _where3(is_glossy, sampling.glossy_f(
                 diffuse_rgb, spec_rgb, shin, m_dir, wi_i), f_diffuse)
             contrib = lt_.radiance[li] * f_i * (g_i * lt_.area[li])[:, None]
-            blk = scene_occluded(scene, shadow_o, wi_i,
-                                 dist_i * (1.0 - 1e-3), ray_chunk=ray_chunk,
-                                 active=nee_active)
-            direct = direct + _where3(blk, torch.zeros_like(contrib),
-                                      contrib)
+            direct = direct + _shadowed(scene, cfg, contrib, shadow_o, wi_i,
+                                        dist_i * (1.0 - 1e-3), nee_active,
+                                        ray_chunk)
         return direct
     lp, ln, lrad, pdf_area = sample_light_points(
         scene.lights, u[:, rng.U_PICK], u[:, rng.U_LIGHT0],
@@ -185,9 +204,8 @@ def _area_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy, diffuse_rgb,
         w_nee = p_nee_sa * p_nee_sa / torch.clamp(
             p_nee_sa * p_nee_sa + p_b_hyp * p_b_hyp, min=1e-30)
         direct = direct * w_nee[:, None]
-    blocked = scene_occluded(scene, shadow_o, wi, dist * (1.0 - 1e-3),
-                             ray_chunk=ray_chunk, active=nee_active)
-    return _where3(blocked, torch.zeros_like(direct), direct)
+    return _shadowed(scene, cfg, direct, shadow_o, wi, dist * (1.0 - 1e-3),
+                     nee_active, ray_chunk)
 
 
 def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
@@ -368,6 +386,16 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     entering = refracted & ~inside
     exiting = refracted & inside
 
+    if cfg.shadow_mode == "transmittance":
+        # the attenuated shadow ray already carries the light behind glass:
+        # a transmissive hit passes the incoming emit_ok on, so that light
+        # is not scored again by the refracted chain
+        trans_emit = hit_ok & is_trans & state.emit_ok
+    else:
+        # opaque shadows cannot cross glass: the specular chain is the only
+        # estimator of the light behind it
+        trans_emit = hit_ok & is_trans
+
     def sel(enter_v, exit_v, keep_v):
         e, x = entering, exiting
         if keep_v.dim() == 2:
@@ -377,9 +405,7 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     new_state = PathState(
         origin=new_o, direction=new_dir, throughput=new_tp,
         radiance=radiance, alive=alive,
-        # block-mode shadows: a transmissive hit always grants emission,
-        # since shadow rays cannot cross glass
-        emit_ok=scatter_evt | (hit_ok & is_mirror) | (hit_ok & is_trans),
+        emit_ok=scatter_evt | (hit_ok & is_mirror) | trans_emit,
         prev_pdf=torch.where(
             hit_ok & ~scatter_evt & (is_diffuse & pdf_ok | is_glossy & g_ok),
             sample_pdf, 0.0),
@@ -409,17 +435,15 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
 
 
 def _check_config(cfg: RenderConfig):
-    unported = {
-        "shadow_mode": (cfg.shadow_mode, "opaque"),
-        "sampler": (cfg.sampler, "uniform"),
-        "aperture": (cfg.aperture, 0.0),
-        "compact_tail": (cfg.compact_tail, False),
-    }
-    for name, (value, ported) in unported.items():
-        if value != ported:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP); the port "
-                f"renders {name}={ported!r}")
+    if cfg.compact_tail:
+        raise NotImplementedError(
+            "compact_tail=True is not ported yet (ROADMAP); the port renders "
+            "compact_tail=False")
+    if cfg.shadow_mode not in ("opaque", "transmittance"):
+        raise ValueError(f"unknown shadow_mode {cfg.shadow_mode!r}")
+    if cfg.sampler not in ("uniform", "sobol"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r} (expected "
+                         "'uniform' or 'sobol')")
     if cfg.max_depth < 1:
         raise ValueError(f"max_depth={cfg.max_depth} must be at least 1")
     if cfg.fresnel_mode not in ("stochastic", "split"):
@@ -452,12 +476,15 @@ def trace_paths(scene, cfg: RenderConfig, origins: torch.Tensor,
         *(torch.stack(parts, dim=1) for parts in zip(*recs)))
 
 
-def camera_rays(scene, cfg: RenderConfig, u_aa: torch.Tensor):
-    """Pinhole camera rays for every lane, s-major ``(s, i, j)``; ``u_aa``
-    (N, 2) jitters each ray within its pixel.  Returns (origins, dirs)."""
+def camera_rays(scene, cfg: RenderConfig, u_aa: torch.Tensor,
+                u_lens: Optional[torch.Tensor] = None):
+    """Camera rays for every lane, s-major ``(s, i, j)``; ``u_aa`` (N, 2)
+    jitters each ray within its pixel, and ``u_lens`` (N, 2), when
+    ``cfg.aperture > 0``, places its origin on the lens.  Returns
+    (origins, dirs)."""
     n_pix = cfg.height * cfg.width
     pixel_ids = torch.arange(n_pix, device=u_aa.device).repeat(cfg.spp)
-    return _pixel_camera_rays(scene, cfg, pixel_ids, u_aa)
+    return _pixel_camera_rays(scene, cfg, pixel_ids, u_aa, u_lens)
 
 
 def _linspace(start: float, stop: float, num: int, like: torch.Tensor):
@@ -478,10 +505,26 @@ def _linspace(start: float, stop: float, num: int, like: torch.Tensor):
 
 
 def _pixel_camera_rays(scene, cfg: RenderConfig, pixel_ids: torch.Tensor,
-                       u_aa: torch.Tensor):
-    """Camera rays for explicit row-major pixel ids ``i*W + j``."""
+                       u_aa: torch.Tensor,
+                       u_lens: Optional[torch.Tensor] = None):
+    """Camera rays for explicit row-major pixel ids ``i*W + j``.  With
+    ``u_lens`` and ``cfg.aperture > 0``, a thin lens: each pinhole ray's
+    point on the focal plane stays, and its origin moves to a point of
+    the aperture disk (in the camera's xy plane); ``focus_distance <= 0``
+    focuses on the screen plane."""
     origin, offset = _pixel_camera_offsets(scene, cfg, pixel_ids, u_aa)
-    return origin, lm.normalize(offset)
+    direction = lm.normalize(offset)
+    if u_lens is None or cfg.aperture <= 0.0:
+        return origin, direction
+    # Python floats meet the tensors as scalars: no copy to the device
+    focus = (cfg.focus_distance if cfg.focus_distance > 0.0
+             else torch.abs(cfg.f_distance - scene.camera[2]))
+    dz = torch.clamp(torch.abs(direction[:, 2]), min=1e-6)
+    focal_pt = origin + direction * (focus / dz)[:, None]
+    lx, ly = sampling.concentric_sample_disk(u_lens[:, 0], u_lens[:, 1])
+    lens = cfg.aperture * torch.stack([lx, ly, torch.zeros_like(lx)], dim=-1)
+    origin = origin + lens
+    return origin, lm.normalize(focal_pt - origin)
 
 
 def _pixel_camera_offsets(scene, cfg: RenderConfig, pixel_ids: torch.Tensor,
@@ -501,14 +544,38 @@ def _pixel_camera_offsets(scene, cfg: RenderConfig, pixel_ids: torch.Tensor,
     return origin, pixel - origin
 
 
-def _camera_lanes(scene, cfg: RenderConfig, gen: torch.Generator):
-    """Jittered camera lanes and their path uniforms, drawn from ``gen``:
-    first the (N, 2) jitter, then the (N, depth, NUM_U) uniforms."""
+def _camera_lanes(scene, cfg: RenderConfig, seed: int,
+                  sample_offset: int = 0):
+    """Camera lanes and their path uniforms by ``cfg.sampler``.
+
+    ``"uniform"`` draws from a generator seeded with ``seed`` on the
+    scene's device: first the (N, 2) jitter, then the (N, depth, NUM_U)
+    uniforms, then, only when ``cfg.aperture > 0``, the (N, 2) lens
+    points, so a pinhole render keeps its stream.  ``"sobol"`` takes the
+    same tensors from ``ops.qmc.render_uniforms`` over samples
+    ``[sample_offset, sample_offset + spp)`` with the seed bits
+    ``qmc.seed_bits(seed)``, and the lens points from ``qmc.LENS_PAIR``."""
     n = cfg.height * cfg.width * cfg.spp
     dt = scene.camera.dtype
-    u_aa = torch.rand((n, 2), generator=gen, dtype=dt, device=gen.device)
-    uniforms = rng.path_uniforms(gen, n, cfg.max_depth, dtype=dt)
-    origins, directions = camera_rays(scene, cfg, u_aa)
+    u_lens = None
+    if cfg.sampler == "sobol":
+        bits = qmc.seed_bits(seed)
+        u_aa, uniforms = qmc.render_uniforms(
+            bits, cfg.height, cfg.width, cfg.spp, cfg.max_depth, dtype=dt,
+            sample_offset=sample_offset, device=scene.device)
+        if cfg.aperture > 0.0:
+            u_lens = qmc.render_pair(bits, cfg.height, cfg.width, cfg.spp,
+                                     qmc.LENS_PAIR, dtype=dt,
+                                     sample_offset=sample_offset,
+                                     device=scene.device)
+    else:
+        gen = _generator(scene, seed)
+        u_aa = torch.rand((n, 2), generator=gen, dtype=dt, device=gen.device)
+        uniforms = rng.path_uniforms(gen, n, cfg.max_depth, dtype=dt)
+        if cfg.aperture > 0.0:
+            u_lens = torch.rand((n, 2), generator=gen, dtype=dt,
+                                device=gen.device)
+    origins, directions = camera_rays(scene, cfg, u_aa, u_lens)
     return origins, directions, uniforms
 
 
@@ -528,12 +595,15 @@ def _generator(scene, seed: int) -> torch.Generator:
 
 def render_image(scene, cfg: RenderConfig, seed: int = 0,
                  ray_chunk: Optional[int] = None,
-                 return_samples: bool = False):
+                 return_samples: bool = False, sample_offset: int = 0):
     """Render the scene on its device: ``image (H, W, 3)`` clipped to
-    [0, 1], and optionally the raw samples ``(H, W, spp, 3)``."""
+    [0, 1], and optionally the raw samples ``(H, W, spp, 3)``.  With the
+    Sobol' sampler the render covers samples ``[sample_offset,
+    sample_offset + spp)`` of each pixel's sequence (the uniform sampler
+    ignores it)."""
     _check_config(cfg)
-    origins, directions, uniforms = _camera_lanes(
-        scene, cfg, _generator(scene, seed))
+    origins, directions, uniforms = _camera_lanes(scene, cfg, seed,
+                                                  sample_offset)
     radiance, _ = trace_paths(scene, cfg, origins, directions, uniforms,
                               ray_chunk=ray_chunk)
     image, samples = _to_image(radiance, cfg)
@@ -545,8 +615,7 @@ def render_with_detectors(scene, cfg: RenderConfig, seed: int = 0,
     """Render plus per-surface detectors: ``(image, energy (T,),
     hits (T,))``."""
     _check_config(cfg)
-    origins, directions, uniforms = _camera_lanes(
-        scene, cfg, _generator(scene, seed))
+    origins, directions, uniforms = _camera_lanes(scene, cfg, seed)
     radiance, record = trace_paths(scene, cfg, origins, directions, uniforms,
                                    ray_chunk=ray_chunk)
     energy, hits = surface_detector_tally(record, scene.mesh.num_triangles)
@@ -654,12 +723,13 @@ def _split_step(scene, cfg: RenderConfig, uniforms, state: PathState,
 
 
 def render_image_split(scene, cfg: RenderConfig, seed: int = 0,
-                       ray_chunk: Optional[int] = None):
+                       ray_chunk: Optional[int] = None,
+                       sample_offset: int = 0):
     """:func:`render_image` through :func:`trace_paths_split` (the same
     lanes and uniforms): ``image (H, W, 3)`` clipped to [0, 1]."""
     _check_config(cfg)
-    origins, directions, uniforms = _camera_lanes(
-        scene, cfg, _generator(scene, seed))
+    origins, directions, uniforms = _camera_lanes(scene, cfg, seed,
+                                                  sample_offset)
     radiance = trace_paths_split(scene, cfg, origins, directions, uniforms,
                                  ray_chunk=ray_chunk)
     return _to_image(radiance, cfg)[0]
@@ -673,14 +743,21 @@ def pass_seed(seed: int, p: int) -> int:
 
 def render_progressive(scene, cfg: RenderConfig, seed: int = 0,
                        n_passes: int = 4, ray_chunk: Optional[int] = None):
-    """Progressive refinement: the average of ``n_passes`` renders, pass
-    ``p`` from seed :func:`pass_seed` ``(seed, p)``, so more passes only
-    add samples.  Each pass renders by ``cfg.fresnel_mode``."""
+    """Progressive refinement: the average of ``n_passes`` renders, each by
+    ``cfg.fresnel_mode``.  With the uniform sampler pass ``p`` renders from
+    seed :func:`pass_seed` ``(seed, p)``, so more passes only add samples.
+    With the Sobol' sampler every pass keeps ``seed`` and pass ``p``
+    covers samples ``[p * spp, (p + 1) * spp)``: the passes continue one
+    point set, and their average equals the one-shot ``n_passes * spp``
+    render up to the per-pass clip to [0, 1]."""
     _check_config(cfg)
     render_one = (render_image_split if cfg.fresnel_mode == "split"
                   else render_image)
+    sobol = cfg.sampler == "sobol"
     acc = None
     for p in range(n_passes):
-        img = render_one(scene, cfg, pass_seed(seed, p), ray_chunk=ray_chunk)
+        img = render_one(scene, cfg, seed if sobol else pass_seed(seed, p),
+                         ray_chunk=ray_chunk,
+                         sample_offset=p * cfg.spp if sobol else 0)
         acc = img if acc is None else acc + img
     return acc / n_passes

@@ -3,6 +3,10 @@
 The counterpart of ``light_transport_tpu.ops.dispatch``, with the JAX
 package's triangle thresholds:
 
+* a watertight scene (``Scene.with_watertight()``) sends every triangle
+  query to the watertight brute force of ``ops.intersect``, before any
+  other route and on either device: a robustness mode that reaches no
+  kernel, as in JAX;
 * meshes of 48 triangles or fewer go to the brute force of
   ``ops.intersect`` on either device;
 * meshes up to ``MXU_MAX_TRIS`` triangles go to the cluster-culled
@@ -37,8 +41,9 @@ wins (``Hit.kind`` and ``Hit.prim`` say which primitive; as in JAX,
 inactive lanes are tested too, and callers mask them), and an analytic
 hit before ``max_dist`` occludes an active lane.
 
-Not ported yet (ROADMAP): the watertight test; ``scene_transmittance``
-(transmittance shadows).
+:func:`scene_transmittance` (``RenderConfig(shadow_mode="transmittance")``)
+marches a shadow segment through up to three nearest-hit queries and one
+any-hit query, on whichever route the scene takes.
 """
 
 from __future__ import annotations
@@ -133,8 +138,13 @@ def scene_intersect(scene, origins, directions,
     inactive lanes get an empty interval (t_max = -inf), so the cluster
     cull and the BVH walks drop them, and report no hit.  ``coherent``:
     the batch is a coherent camera grid (bounce 0), which past
-    ``MXU_MAX_TRIS`` takes the single-launch treelet kernel."""
-    if _use_cluster_intersector(scene, coherent):
+    ``MXU_MAX_TRIS`` takes the single-launch treelet kernel.  A watertight
+    scene tests every lane, as JAX's does; callers mask the inactive."""
+    if scene.watertight:
+        hit = intersect.intersect_rays_watertight(origins, directions,
+                                                  scene.mesh,
+                                                  ray_chunk=ray_chunk)
+    elif _use_cluster_intersector(scene, coherent):
         from light_transport_tpu_torch.ops.intersect_kernel import (
             intersect_rays_pallas,
         )
@@ -181,7 +191,13 @@ def scene_occluded(scene, origins, directions, max_dist,
                    ray_chunk: Optional[int] = None, active=None):
     """Any-hit visibility against the scene; inactive lanes are skipped and
     report unoccluded."""
-    if _use_cluster_intersector(scene):
+    if scene.watertight:
+        md = _t_max(origins, None, max_dist)
+        if active is not None:
+            md = torch.where(active, md, 0.0)  # an empty interval
+        occ = intersect.occluded_watertight(origins, directions, scene.mesh,
+                                            md, ray_chunk=ray_chunk)
+    elif _use_cluster_intersector(scene):
         from light_transport_tpu_torch.ops.intersect_kernel import (
             intersect_rays_pallas,
         )
@@ -215,3 +231,68 @@ def scene_occluded(scene, origins, directions, max_dist,
             a_occ = a_occ & active
         occ = occ | a_occ
     return occ
+
+
+def scene_transmittance(scene, origins, directions, max_dist,
+                        ray_chunk: Optional[int] = None, active=None,
+                        max_hits: int = 3):
+    """Straight-line transmittance ``(N, 3)`` in [0, 1] along shadow
+    segments, as JAX's ``scene_transmittance``.
+
+    Up to ``max_hits`` nearest-hit queries march each segment: a surface
+    that is not transmissive blocks (0); a backface crossing of a
+    transmissive surface exits its object, and the span just marched
+    attenuates by Beer–Lambert ``exp(-(sigma_a + sigma_s) * t)`` of its
+    material; a segment that ends inside an entered object attenuates by
+    the pending extinction over its last span.  Lanes still marching
+    after ``max_hits`` crossings are closed out by one any-hit query:
+    anything ahead blocks.  The segment is not refracted and interface
+    Fresnel loss is ignored (JAX's approximations)."""
+    from light_transport_tpu_torch.scene.analytic import surface_attrs
+    from light_transport_tpu_torch.scene.material import BSDF_TRANSMISSIVE
+
+    eps = 1e-4
+    mats = scene.materials
+    n = origins.shape[0]
+    kw = dict(dtype=origins.dtype, device=origins.device)
+    remaining = _t_max(origins, None, max_dist)
+    marching = (torch.ones((n,), dtype=torch.bool, device=origins.device)
+                if active is None else active)
+    cur_o = origins
+    trans = torch.ones((n, 3), **kw)
+    pend_sig = torch.zeros((n, 3), **kw)
+    for _ in range(max_hits):
+        hit = scene_intersect(scene, cur_o, directions, ray_chunk=ray_chunk,
+                              active=marching)
+        hit_in = hit.valid & (hit.t < remaining) & marching
+        # no surface left in range: a lane inside an entered object ends
+        # there, and its last span is interior
+        end_now = marching & ~hit_in
+        trans = torch.where(end_now[:, None],
+                            trans * torch.exp(-pend_sig * remaining[:, None]),
+                            trans)
+        hit_p = cur_o + directions * hit.t[:, None]
+        n_geo, mat_id, _ = surface_attrs(scene, hit, hit_p)
+        is_trans = mats.bsdf[mat_id] == BSDF_TRANSMISSIVE
+        blocked = hit_in & ~is_trans
+        trans = torch.where(blocked[:, None], 0.0, trans)
+        cos_d = (n_geo * directions).sum(dim=-1)
+        exiting = hit_in & is_trans & (cos_d > 0.0)
+        entering = hit_in & is_trans & (cos_d <= 0.0)
+        sig_t = mats.sigma_a[mat_id] + mats.sigma_s[mat_id][:, None]
+        att = torch.exp(-sig_t * hit.t[:, None])
+        trans = torch.where(exiting[:, None], trans * att, trans)
+        pend_sig = torch.where(
+            hit_in[:, None], torch.where(entering[:, None], sig_t, 0.0),
+            pend_sig)
+        step = hit.t + eps
+        cur_o = torch.where(hit_in[:, None], hit_p + eps * directions, cur_o)
+        remaining = torch.where(hit_in, remaining - step, remaining)
+        marching = hit_in & is_trans
+    still = marching & (remaining > 0.0)
+    occ_tail = scene_occluded(scene, cur_o, directions, remaining,
+                              ray_chunk=ray_chunk, active=still)
+    trans = torch.where((still & occ_tail)[:, None], 0.0, trans)
+    return torch.where((still & ~occ_tail)[:, None],
+                       trans * torch.exp(-pend_sig * remaining[:, None]),
+                       trans)

@@ -1,13 +1,16 @@
-"""Brute-force ray-triangle intersection (masked Möller–Trumbore) and the
-analytic sphere, plane and box tests.
+"""Brute-force ray-triangle intersection (masked Möller–Trumbore and the
+watertight test) and the analytic sphere, plane and box tests.
 
 The counterpart of ``light_transport_tpu.ops.intersect``'s ``intersect_rays``
 and ``occluded``: every ray against every triangle in one ``(N, T)``
 tile, the path scenes of 48 triangles or fewer take on either device.
 Larger meshes go through the cluster-culled intersector
-(``ops.intersect_kernel``).  ``sphere_intersect``, ``plane_intersect`` and
-``aabb_intersect`` test a ray batch against one primitive each
-(``scene.analytic`` folds the first two into every scene query).
+(``ops.intersect_kernel``).  ``intersect_rays_watertight`` and
+``occluded_watertight`` are the same brute force through PBRT's
+watertight test, which every query of a ``Scene.with_watertight()`` scene
+takes.  ``sphere_intersect``, ``plane_intersect`` and ``aabb_intersect``
+test a ray batch against one primitive each (``scene.analytic`` folds the
+first two into every scene query).
 """
 
 from __future__ import annotations
@@ -148,3 +151,136 @@ def aabb_intersect(origins, directions, box_min, box_max,
     t_far = torch.minimum(torch.maximum(t1, t2).amin(dim=-1),
                           torch.as_tensor(t_max, **kw))
     return t_near <= t_far, t_near, t_far
+
+
+# ---------------------------------------------------------------------------
+# The watertight test (PBRT's "Watertight Ray-Triangle Intersection"), as
+# JAX's ``_wt_tile``: translate to the ray origin, permute the axes so the
+# ray's largest direction component is z, shear the ray onto +z, then three
+# 2-D edge functions.  The per-ray permutation is a ``torch.gather``.  As
+# in JAX, an exactly-zero edge function counts as an on-edge hit, with no
+# float64 re-evaluation: adjacent triangles evaluate a shared edge from the
+# same rounded products, negated, so a ray on the edge hits at least one.
+# ---------------------------------------------------------------------------
+
+_F32_EPS_HALF = float(torch.finfo(torch.float32).eps) / 2.0
+
+
+def _gamma(n: int) -> float:
+    """PBRT's conservative bound on the error of ``n`` float operations."""
+    return n * _F32_EPS_HALF / (1.0 - n * _F32_EPS_HALF)
+
+
+def _wt_tile(o, d, v0, v1, v2, t_min, t_max):
+    """The watertight test on an (N, T) tile: ``(t, b0, b1, b2, valid)``."""
+    kz = torch.argmax(torch.abs(d), dim=-1)  # (N,)
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+
+    def pick(vec, k):
+        # the component of (N, 3) or (N, T, 3) ``vec`` along each ray's axis
+        if vec.dim() == 2:
+            return torch.gather(vec, 1, k[:, None])[:, 0]
+        idx = k[:, None, None].expand(vec.shape[0], vec.shape[1], 1)
+        return torch.gather(vec, 2, idx)[..., 0]
+
+    dx, dy, dz = pick(d, kx), pick(d, ky), pick(d, kz)
+    sx = -dx / dz
+    sy = -dy / dz
+    sz = 1.0 / dz
+
+    def xyz(p):
+        q = p[None, :, :] - o[:, None, :]  # (N, T, 3)
+        px, py, pz = pick(q, kx), pick(q, ky), pick(q, kz)
+        return px + sx[:, None] * pz, py + sy[:, None] * pz, pz
+
+    x0, y0, z0 = xyz(v0)
+    x1, y1, z1 = xyz(v1)
+    x2, y2, z2 = xyz(v2)
+
+    e0 = x1 * y2 - y1 * x2
+    e1 = x2 * y0 - y2 * x0
+    e2 = x0 * y1 - y0 * x1
+
+    same_sign = ~(((e0 < 0) | (e1 < 0) | (e2 < 0))
+                  & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
+    det = e0 + e1 + e2
+    ok = same_sign & (det != 0.0)
+
+    z0s, z1s, z2s = sz[:, None] * z0, sz[:, None] * z1, sz[:, None] * z2
+    t_scaled = e0 * z0s + e1 * z1s + e2 * z2s
+    # the distance window on the scaled t, by the sign of det
+    lo = t_min[:, None] * det
+    hi = t_max[:, None] * det
+    ok = ok & torch.where(det < 0, (t_scaled <= lo) & (t_scaled > hi),
+                          (t_scaled >= lo) & (t_scaled < hi))
+
+    inv_det = torch.where(det != 0.0,
+                          1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+    t = t_scaled * inv_det
+    b0, b1, b2 = e0 * inv_det, e1 * inv_det, e2 * inv_det
+
+    # reject hits closer than the bound on t's rounding error
+    max_zt = torch.maximum(torch.maximum(torch.abs(z0s), torch.abs(z1s)),
+                           torch.abs(z2s))
+    max_xt = torch.maximum(torch.maximum(torch.abs(x0), torch.abs(x1)),
+                           torch.abs(x2))
+    max_yt = torch.maximum(torch.maximum(torch.abs(y0), torch.abs(y1)),
+                           torch.abs(y2))
+    delta_z = _gamma(3) * max_zt
+    delta_x = _gamma(5) * (max_xt + max_zt)
+    delta_y = _gamma(5) * (max_yt + max_zt)
+    delta_e = 2.0 * (_gamma(2) * max_xt * max_yt
+                     + delta_y * max_xt + delta_x * max_yt)
+    max_e = torch.maximum(torch.maximum(torch.abs(e0), torch.abs(e1)),
+                          torch.abs(e2))
+    delta_t = 3.0 * (_gamma(3) * max_e * max_zt + delta_e * max_zt
+                     + delta_z * max_e) * torch.abs(inv_det)
+    ok = ok & (t > delta_t)
+    return t, b0, b1, b2, ok
+
+
+def _vertices(mesh):
+    return mesh.v0, mesh.v0 + mesh.e1, mesh.v0 + mesh.e2
+
+
+def intersect_rays_watertight(origins: torch.Tensor, directions: torch.Tensor,
+                              mesh, t_min=T_EPS, t_max=float("inf"),
+                              ray_chunk: Optional[int] = None) -> Hit:
+    """Nearest hit through the watertight test: a ray through a shared
+    edge or vertex of adjacent triangles hits at least one of them, where
+    Möller–Trumbore can round it into a crack.  The lowest triangle index
+    wins a tie in t."""
+    n = origins.shape[0]
+    t_min = _broadcast_t(t_min, n, origins)
+    t_max = _broadcast_t(t_max, n, origins)
+    v0, v1, v2 = _vertices(mesh)
+    ts, tris = [], []
+    for s in _chunks(n, ray_chunk):
+        t, _, _, _, valid = _wt_tile(origins[s], directions[s], v0, v1, v2,
+                                     t_min[s], t_max[s])
+        t_masked = torch.where(valid, t, float("inf"))
+        tri = torch.argmin(t_masked, dim=-1)
+        ts.append(torch.gather(t_masked, 1, tri[:, None])[:, 0])
+        tris.append(tri)
+    t_best = torch.cat(ts)
+    ok = torch.isfinite(t_best)
+    tri = torch.where(ok, torch.cat(tris), -1).to(torch.int32)
+    return Hit(t=t_best, tri=tri, valid=ok)
+
+
+def occluded_watertight(origins: torch.Tensor, directions: torch.Tensor,
+                        mesh, max_dist, t_min=T_EPS,
+                        ray_chunk: Optional[int] = None) -> torch.Tensor:
+    """Any-hit test through the watertight test: a shadow ray grazing a
+    shared edge cannot slip through a crack."""
+    n = origins.shape[0]
+    t_min = _broadcast_t(t_min, n, origins)
+    max_dist = _broadcast_t(max_dist, n, origins)
+    v0, v1, v2 = _vertices(mesh)
+    out = []
+    for s in _chunks(n, ray_chunk):
+        valid = _wt_tile(origins[s], directions[s], v0, v1, v2, t_min[s],
+                         max_dist[s])[4]
+        out.append(valid.any(dim=-1))
+    return torch.cat(out)

@@ -311,7 +311,9 @@ def render_sharded(scene, cfg: RenderConfig, seed: int = 0,
     """Camera render with the lanes split over the mesh.
 
     The lanes and their uniforms are drawn at full width as
-    ``path_tracer.render_image`` draws them, padded to a multiple of the
+    ``path_tracer.render_image`` draws them (through its
+    ``_camera_lanes``: the Sobol' sampler and the thin lens included),
+    padded to a multiple of the
     shard count (origin 0, direction (0, 0, 1), uniforms 0.5) and cut
     into contiguous shards; each shard is traced on its own (through
     ``trace_paths_split`` when ``cfg.fresnel_mode="split"``), and the
@@ -328,8 +330,7 @@ def render_sharded(scene, cfg: RenderConfig, seed: int = 0,
     n = cfg.height * cfg.width * cfg.spp
     n_sh = mesh.n_shards
     pad = (-n) % n_sh
-    origins, directions, uniforms = pt._camera_lanes(
-        scene, cfg, pt._generator(scene, seed))
+    origins, directions, uniforms = pt._camera_lanes(scene, cfg, seed)
     if pad:
         z3 = torch.zeros((pad, 3), dtype=origins.dtype, device=origins.device)
         up = z3.clone()

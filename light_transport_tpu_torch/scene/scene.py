@@ -1,8 +1,7 @@
 """Scene container: mesh, material table, light table, camera, BVH,
-treelet tables, analytic primitives and point lights.
+treelet tables, analytic primitives, point lights and the watertight flag.
 
-The counterpart of ``light_transport_tpu.scene.scene``.  The watertight
-mode belongs to a later slice (ROADMAP); the port's Scene has none.
+The counterpart of ``light_transport_tpu.scene.scene``.
 """
 
 from __future__ import annotations
@@ -32,10 +31,10 @@ TREELET_MAX_TRIS = 1 << 24
 
 def _auto_treelet(scene: "Scene") -> bool:
     """True when the dispatch would send this scene's queries through the
-    treelet kernels: the scene lies on the card and its mesh is past the
-    crossover and within the table format."""
+    treelet kernels: the scene lies on the card, is not watertight, and
+    its mesh is past the crossover and within the table format."""
     n = scene.mesh.num_triangles
-    return (scene.device.type == "cuda"
+    return (not scene.watertight and scene.device.type == "cuda"
             and TREELET_AUTO_MIN_TRIS < n < TREELET_MAX_TRIS)
 
 
@@ -53,6 +52,9 @@ class Scene:
     analytic: Optional[AnalyticPrims] = None
     # point (delta) lights, set by with_point_lights()
     point_lights: Optional[PointLightTable] = None
+    # set by with_watertight(): every triangle query takes the watertight
+    # brute force (ops.intersect.intersect_rays_watertight), no kernel
+    watertight: bool = False
 
     @staticmethod
     def build(mesh: TriangleMesh, materials: MaterialTable, camera,
@@ -89,7 +91,8 @@ class Scene:
                       lights=LightTable.build(ordered, self.materials,
                                               dtype=dtype),
                       camera=self.camera, bvh=bvh, analytic=self.analytic,
-                      point_lights=self.point_lights)
+                      point_lights=self.point_lights,
+                      watertight=self.watertight)
         if treelet is True or (treelet == "auto" and _auto_treelet(scene)):
             scene = scene.with_treelet()
         return scene
@@ -119,3 +122,9 @@ class Scene:
         return dataclasses.replace(self, point_lights=PointLightTable.build(
             positions, intensities, dtype=dtype, device=self.device,
             **phong))
+
+    def with_watertight(self, on: bool = True) -> "Scene":
+        """Send every triangle query through the watertight test, the
+        reference's robustness mode: a brute force over every triangle in
+        plain PyTorch, on either device, which reaches no kernel."""
+        return dataclasses.replace(self, watertight=on)

@@ -16,8 +16,9 @@ module needs neither JAX nor the JAX package: tests convert with
   node arrays and fused records of ``BVH_FIELDS``; ``max_leaf`` is read
   back from the leaf record's width) and ``treelet`` (``{"T": ...}``:
   the port's treelet tables are the BVH's records cut into treelets of
-  ``T`` nodes), ``analytic`` (``ANALYTIC_FIELDS``) and ``point_lights``
-  (``POINT_LIGHT_FIELDS``).
+  ``T`` nodes), ``analytic`` (``ANALYTIC_FIELDS``), ``point_lights``
+  (``POINT_LIGHT_FIELDS``) and ``watertight`` (a bool, False when
+  absent).
 * A hit is ``t``, ``tri`` and ``valid``, and ``kind`` and ``prim`` when
   the scene has analytic primitives.
 """
@@ -175,7 +176,8 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         camera=_tensor(d["camera"], np.asarray(d["camera"]).dtype, device),
         bvh=bvh, analytic=table("analytic", AnalyticPrims, ANALYTIC_FIELDS),
         point_lights=table("point_lights", PointLightTable,
-                           POINT_LIGHT_FIELDS))
+                           POINT_LIGHT_FIELDS),
+        watertight=bool(d.get("watertight", False)))
     if d.get("treelet") is not None:
         scene = scene.with_treelet(T=int(d["treelet"]["T"]))
     return scene
@@ -194,7 +196,8 @@ def scene_to_numpy(scene: Scene) -> dict:
                          else _arrays(scene.analytic, ANALYTIC_FIELDS)),
             "point_lights": (
                 None if scene.point_lights is None
-                else _arrays(scene.point_lights, POINT_LIGHT_FIELDS))}
+                else _arrays(scene.point_lights, POINT_LIGHT_FIELDS)),
+            "watertight": scene.watertight}
 
 
 def uniforms_from_numpy(u_aa, uniforms, device="cuda"):

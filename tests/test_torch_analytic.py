@@ -220,8 +220,7 @@ def test_point_light_free_scene_unchanged():
     without analytic primitives keeps the triangle hit record."""
     scene, cfg = cornell.cornell_box_scene(width=8, height=8, spp=1,
                                            max_depth=3, device="cpu")
-    gen = torch.Generator().manual_seed(5)
-    o, d, u = pt._camera_lanes(scene, cfg, gen)
+    o, d, u = pt._camera_lanes(scene, cfg, 5)
     r0, rec0 = pt.trace_paths(scene, cfg, o, d, u)
     black = scene.with_point_lights([[0.0, 0.0, 0.0]], [[0.0, 0.0, 0.0]])
     r1, rec1 = pt.trace_paths(black, cfg, o, d, u)

@@ -296,31 +296,37 @@ def test_render_entry_points_on_the_cpu():
     dict(fresnel_mode="split"), dict(sampler="sobol"), dict(aperture=0.1),
     dict(shadow_mode="transmittance"), dict(compact_tail=True)])
 def test_unported_options_raise(change):
-    """Each option the port lacks raises; ``fresnel_mode="split"``, ported
-    since, renders through ``api.render`` with the split tracer."""
+    """``compact_tail``, the one option the port lacks, raises; the others,
+    ported since, render through ``api.render`` as the module's function
+    renders them (``fresnel_mode="split"`` through the split tracer)."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
     cfg = dataclasses.replace(cfg, **change)
-    if change == dict(fresnel_mode="split"):
-        img = api.render(scene, cfg)
-        assert torch.equal(img, pt.render_image_split(scene, cfg))
+    if change == dict(compact_tail=True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.render(scene, cfg)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.render(scene, cfg)
+    one = (pt.render_image_split if change == dict(fresnel_mode="split")
+           else pt.render_image)
+    img = api.render(scene, cfg, seed=3)
+    assert torch.equal(img, one(scene, cfg, 3))
+    assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
 
 
 def test_unported_integrators_raise():
-    """Adaptive and BDPT raise; Whitted, ported since, renders through
+    """BDPT raises; Whitted and adaptive, ported since, render through
     ``api.render``."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
-    for integrator in ("adaptive", "bdpt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.render(scene, cfg, integrator=integrator)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.render(scene, cfg, integrator="bdpt")
+    from light_transport_tpu_torch.integrators.adaptive import render_adaptive
     from light_transport_tpu_torch.integrators.whitted import render_whitted
 
     img = api.render(scene, cfg, integrator="whitted")
     assert torch.equal(img, render_whitted(scene, cfg))
+    img = api.render(scene, cfg, integrator="adaptive")
+    assert torch.equal(img, render_adaptive(scene, cfg, rounds=1))
 
 
 def test_interop_scene_hit_and_uniform_round_trip():

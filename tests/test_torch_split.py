@@ -205,7 +205,7 @@ def test_split_without_glass_is_the_stochastic_tracer():
                                    include_cone=False, device="cpu")
     assert not bool((scene.materials.bsdf[scene.mesh.mat_id]
                      == material.BSDF_TRANSMISSIVE).any())
-    o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 4))
+    o, d, u = pt._camera_lanes(scene, cfg, 4)
     split = pt.trace_paths_split(scene, cfg, o, d, u)
     assert torch.equal(split, pt.trace_paths(scene, cfg, o, d, u)[0])
     assert float(split.sum()) > 0
@@ -218,7 +218,7 @@ def test_trace_paths_unchanged_by_per_lane_bounce():
     the bounce)."""
     scene, cfg = presets.glass_scene(10, 8, 2, 4, device="cpu")
     cfg = dataclasses.replace(cfg, emission_mode="first_hit", rr_start=0)
-    o, d, u = pt._camera_lanes(scene, cfg, pt._generator(scene, 6))
+    o, d, u = pt._camera_lanes(scene, cfg, 6)
     rad, rec = pt.trace_paths(scene, cfg, o, d, u)
     state = pt.PathState.initial(o, d)
     for b in range(cfg.max_depth):
@@ -241,9 +241,12 @@ def test_render_progressive_honours_fresnel_mode():
     assert not torch.equal(pt.render_progressive(scene, cfg, 5, 2),
                            pt.render_progressive(scene, split_cfg, 5, 2))
     assert pt.pass_seed(5, 0) != pt.pass_seed(5, 1) != pt.pass_seed(6, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.render_progressive(scene, dataclasses.replace(cfg,
-                                                         sampler="sobol"))
+    # the Sobol' passes keep the seed and continue one point set
+    sobol = dataclasses.replace(cfg, sampler="sobol")
+    img = pt.render_progressive(scene, sobol, seed=5, n_passes=2)
+    want = (pt.render_image(scene, sobol, 5)
+            + pt.render_image(scene, sobol, 5, sample_offset=cfg.spp)) / 2
+    assert torch.equal(img, want) and 0 < float(img.mean()) < 1
 
 
 def test_api_render_routes_split():

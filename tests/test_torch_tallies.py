@@ -152,10 +152,12 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.core.rng\n"
         "import light_transport_tpu_torch.integrators.path_tracer\n"
         "import light_transport_tpu_torch.integrators.whitted\n"
+        "import light_transport_tpu_torch.integrators.adaptive\n"
         "import light_transport_tpu_torch.ops.dispatch\n"
         "import light_transport_tpu_torch.ops.feature_probes\n"
         "import light_transport_tpu_torch.ops.intersect\n"
         "import light_transport_tpu_torch.ops.lanestack\n"
+        "import light_transport_tpu_torch.ops.qmc\n"
         "import light_transport_tpu_torch.ops.intersect_kernel\n"
         "import light_transport_tpu_torch.ops.raysort\n"
         "import light_transport_tpu_torch.ops.treelet_kernel\n"

@@ -206,7 +206,7 @@ def test_with_bvh_auto_treelet_policy():
 
     def fake(device, tris):
         return types.SimpleNamespace(
-            device=torch.device(device),
+            device=torch.device(device), watertight=False,
             mesh=types.SimpleNamespace(num_triangles=tris))
 
     big = scene_mod.TREELET_AUTO_MIN_TRIS + 1
