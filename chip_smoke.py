@@ -151,6 +151,21 @@ script exits non-zero without the final result line):
      launches, a crop bitwise the plain walk).  Comparisons that would
      take minutes at full width run on a contiguous crop of the render's
      lanes
+ 18. BDPT and the control variates, each render's walls, kernel launches,
+     host syncs and device busy time as in 16: after 17e, BDPT on
+     examples/bdpt_cornell.py's Cornell box (18a: one lanes dict drawn on
+     the CPU and rendered on both devices, lanes and a crop's splat plane
+     against the CPU beside a second card run of it, the unclipped image
+     mean against the path tracer's within 3 sigma), on point_light_scene
+     and examples/point_light.py's mixed scene (18b: the family and
+     q_point, card against CPU), on glass through K3 (18c: the launches
+     counted from integrators/bdpt.py's loops, every one held bitwise),
+     on the soft-shadow scene at 4 spp through the cull kernel and K4
+     (18d: the body's peak memory, a crop bitwise the plain
+     intersector), render_cv exact on examples/lts_cornell.py's Cornell
+     box and on glass at 8 spp, and 2,048 glass lanes' scores on the
+     card against the CPU's and exact against fd (18f); after 17's big
+     mesh, BDPT on it through K5 (18e: a crop bitwise the plain walk)
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -184,6 +199,8 @@ from light_transport_tpu_torch.core.config import (
 )
 from light_transport_tpu_torch.core import rng
 from light_transport_tpu_torch.integrators import adaptive as ad
+from light_transport_tpu_torch.integrators import bdpt as tb
+from light_transport_tpu_torch.integrators import control_variates as cv
 from light_transport_tpu_torch.integrators import path_tracer as pt
 from light_transport_tpu_torch.integrators import whitted as tw
 from light_transport_tpu_torch.models.presets import (
@@ -3770,6 +3787,385 @@ def phase17(glass, soft):
     return wall
 
 
+# --------------------------------------------------------------------------
+# phase 18: BDPT and the control variates
+# --------------------------------------------------------------------------
+
+# examples/bdpt_cornell.py:23, examples/point_light.py:26-27 and :51-68,
+# examples/lts_cornell.py:26
+BDPT_CORNELL = dict(width=96, height=96, spp=16, max_depth=4)
+BDPT_POINT = dict(width=192, height=192, spp=16, max_depth=4)
+MIXED_LIGHT = ([[0.0, 3.0, 0.0]], [[40.0, 40.0, 40.0]])
+CV_CORNELL = dict(width=150, height=150, spp=12, max_depth=4)
+CV_GLASS_SPP = 8
+GRAD_LANES = 2_048  # glass lanes scored on both devices and by fd
+# card against CPU on the score: every slot within GRAD_ATOL + GRAD_RTOL
+# |g| on >= CPU_PIXELS of the lanes (a lane whose path flips a branch on an
+# ulp scores another path)
+GRAD_ATOL, GRAD_RTOL = 1e-4, 1e-3
+# tests/test_control_variates.py:31-44: fd step, closeness, share of slots
+FD_STEP_TEST, FD_CLOSE, FD_SHARE = 1e-3, 5e-2, 0.9
+# a splat plane run twice on the card: each bin within this share of its
+# value (its adds are float atomics in the card's order, all of them >= 0)
+SPLAT_RERUN_REL = 2.0 ** -16
+
+
+def bdpt_queries(depth, family, n_point=0):
+    """(nearest-hit, any-hit) queries of one BDPT render, by
+    integrators/bdpt.py's loops: the two walks; s=1 to the area lights;
+    s=1 to each point light; the s>=2 connections within the depth; the
+    t=1 splats (light tracing on)."""
+    nearest = 2 * depth
+    any_hit = ((depth if family != "point" else 0)
+               + (depth * n_point if family != "area" else 0)
+               + depth * (depth - 1) // 2 + depth)
+    return nearest, any_hit
+
+
+def bdpt_render(scene, cfg, seed=0):
+    return lt.render(scene, cfg, seed=seed, integrator="bdpt")
+
+
+def lanes_on(lanes, device, sl=slice(None)):
+    return {k: v[sl].to(device) for k, v in lanes.items()}
+
+
+def bdpt_body(scene, cfg, lanes, family, q):
+    return tb._bdpt_body(scene, cfg, lanes, None, True, family, q)
+
+
+def splat_rerun(label, scene, cfg, lanes, family, q):
+    """One lane set's splat plane twice on the card: the largest relative
+    difference of a bin; fails past SPLAT_RERUN_REL."""
+    a = bdpt_body(scene, cfg, lanes, family, q)[1].double()
+    b = bdpt_body(scene, cfg, lanes, family, q)[1].double()
+    big = torch.maximum(a.abs(), b.abs())
+    rel = float(((a - b).abs() / torch.where(big > 0, big, 1.0)).max())
+    log(18, f"{label}: splat plane rerun on the card, largest relative "
+            f"difference of a bin {rel:.3g} (limit {SPLAT_RERUN_REL:.3g}), "
+            f"bitwise {torch.equal(a, b)}")
+    check(rel <= SPLAT_RERUN_REL, f"{label}: splat rerun differs by {rel}")
+    return a.float()
+
+
+def bdpt_against_cpu(label, scene, scene_cpu, cfg, seed=0):
+    """One lanes dict drawn on the CPU, rendered whole on the card and its
+    first CROP_CPU lanes on the CPU: per-lane radiance to 15e's limits,
+    the crop's splat plane (in image units) too, beside a second card run
+    of it.  Returns the card's (lanes, radiance, splat) of the whole dict
+    and the family."""
+    family, q = tb._light_family(scene_cpu)
+    lanes = tb._bdpt_lane_uniforms(scene_cpu, cfg, seed, family)
+    n = lanes["o"].shape[0]
+    card = lanes_on(lanes, DEV)
+    rad, splat = bdpt_body(scene, cfg, card, family, q)
+    k = min(CROP_CPU, n)
+    crop = lanes_on(lanes, "cpu", slice(0, k))
+    t0 = time.perf_counter()
+    rad_cpu, splat_cpu = bdpt_body(scene_cpu, cfg, crop, family, q)
+    log(18, f"{label}: CPU BDPT of lanes 0-{k} of {n} "
+            f"{time.perf_counter() - t0:.2f} s")
+    parity(f"{label} card against CPU (lanes' radiance)", rad[:k], rad_cpu,
+           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN), 18)
+    splat_k = splat_rerun(label, scene, cfg, lanes_on(crop, DEV), family, q)
+    parity(f"{label} card against CPU (the crop's splat plane / {k})",
+           splat_k / k, splat_cpu / k, (CPU_PIXELS, CPU_WITHIN, CPU_MEAN),
+           18)
+    return card, rad, splat, family, q
+
+
+def lane_means(rad, splat, n_pix):
+    """A BDPT render's unclipped image mean (over pixels and channels):
+    ``mean_l(rad_l) + sum(splat) / (n * n_pix)``."""
+    n = rad.shape[0]
+    return (float(rad.double().mean()) + float(splat.double().sum())
+            / (3 * n * n_pix))
+
+
+def bdpt_mean_against_pt(label, scene, cfg, card, rad, splat, family, q):
+    """The BDPT render's unclipped image mean against the path tracer's at
+    the same size (``emission_mode="nee"``: the transport BDPT targets,
+    light through specular chains included), within 3 sigma: sigma^2 the
+    path tracer's per-pixel sample variance over spp and pixels^2 plus
+    the BDPT mean's from its spp sample layers (each layer one lane a
+    pixel with its own light paths, rendered on its own, splats
+    included: iid estimates of the mean)."""
+    n_pix = cfg.width * cfg.height
+    pcfg = dataclasses.replace(cfg, emission_mode="nee")
+    _, samples = pt.render_image(scene, pcfg, seed=1, return_samples=True)
+    m_pt = float(samples.double().mean())
+    se_pt = pixel_sigma(samples)
+    layers = [lane_means(*bdpt_body(
+        scene, cfg, lanes_on(card, DEV, slice(k * n_pix, (k + 1) * n_pix)),
+        family, q), n_pix) for k in range(cfg.spp)]
+    se_bd = float(np.std(layers, ddof=1)) / cfg.spp ** 0.5
+    m_bd = lane_means(rad, splat, n_pix)
+    bound = 3.0 * (se_pt ** 2 + se_bd ** 2) ** 0.5
+    log(18, f"{label}: unclipped image mean BDPT {m_bd:.6f} (standard error "
+            f"{se_bd:.3g} from its {cfg.spp} sample layers, whose means "
+            f"average {float(np.mean(layers)):.6f}), path tracer (emission_"
+            f"mode nee) {m_pt:.6f} (standard error {se_pt:.3g} from the "
+            f"per-pixel sample variance); difference {abs(m_bd - m_pt):.3g}, "
+            f"3 sigma {bound:.3g}")
+    check(abs(m_bd - m_pt) <= bound, f"{label}: BDPT and PT means differ")
+
+
+def check_bdpt_launches(label, launched, want):
+    check(launched == want, f"{label}: kernel launches {launched}, "
+                            f"expected {want}")
+
+
+def phase18a():
+    """18a: BDPT on examples/bdpt_cornell.py's Cornell box (the brute
+    force, no kernel): card against CPU, its mean against the path
+    tracer's."""
+    scene, cfg = cornell_box_scene(**BDPT_CORNELL, device=DEV)
+    label = (f"18a Cornell {cfg.width}x{cfg.height}x{cfg.spp} depth "
+             f"{cfg.max_depth} BDPT")
+    img, launched, _ = render_numbers(label, lambda: bdpt_render(scene, cfg),
+                                      18)
+    check_bdpt_launches("18a", launched, {})
+    scene_cpu = cornell_box_scene(**BDPT_CORNELL, device="cpu")[0]
+    card, rad, splat, family, q = bdpt_against_cpu("18a Cornell", scene,
+                                                   scene_cpu, cfg)
+    log(18, f"18a family {family}, queries (nearest, any-hit) "
+            f"{bdpt_queries(cfg.max_depth, family)}; image mean "
+            f"{float(img.mean()):.5f}")
+    bdpt_mean_against_pt("18a Cornell", scene, cfg, card, rad, splat,
+                         family, q)
+
+
+def phase18b():
+    """18b: BDPT on point_light_scene (the point family) and on the
+    Cornell box with examples/point_light.py's point light (the mixed
+    family), 192x192x16 at depth 4 (the brute force, no kernel)."""
+    def point(dev):
+        return point_light_scene(**BDPT_POINT, device=dev)
+
+    def mixed(dev):
+        s, c = cornell_box_scene(**BDPT_POINT, device=dev)
+        return s.with_point_lights(*MIXED_LIGHT), c
+
+    for name, make, want in (("point_light_scene", point, "point"),
+                             ("mixed", mixed, "mixed")):
+        scene, cfg = make(DEV)
+        family, q = tb._light_family(scene)
+        queries = bdpt_queries(cfg.max_depth, family,
+                               scene.point_lights.num)
+        label = (f"18b {name} {cfg.width}x{cfg.height}x{cfg.spp} depth "
+                 f"{cfg.max_depth} BDPT, family {family}, q_point {q:.6f}")
+        img, launched, _ = render_numbers(
+            label, lambda: bdpt_render(scene, cfg), 18)
+        check_bdpt_launches(f"18b {name}", launched, {})
+        log(18, f"18b {name}: family {family}, q_point {q}, queries "
+                f"(nearest, any-hit) {queries}; image mean "
+                f"{float(img.mean()):.5f}")
+        check(family == want, f"18b {name}: family {family}")
+        check(float(img.mean()) > 0.01, f"18b {name}: black image")
+        bdpt_against_cpu(f"18b {name}", scene, make("cpu")[0], cfg)
+
+
+def phase18c(glass):
+    """18c: BDPT on the glass preset through K3, every launch held bitwise
+    against its plain version, the card against the CPU."""
+    scene, cfg = glass
+    nq = sum(bdpt_queries(cfg.max_depth, "area"))
+    label = (f"18c glass {cfg.width}x{cfg.height}x{cfg.spp} depth "
+             f"{cfg.max_depth} BDPT")
+    img, launched, _ = render_numbers(label, lambda: bdpt_render(scene, cfg),
+                                      18)
+    check_bdpt_launches("18c", launched, {"intersect_dense": nq})
+    t0 = time.perf_counter()
+    with Recorder("intersect_dense") as rec:
+        bdpt_render(scene, cfg)
+        torch.cuda.synchronize()
+    n, ms, pairs = rec.summary()
+    log(18, f"18c glass: {n} K3 launches, {ms:.4f} ms mean by CUDA events, "
+            f"admitted pairs per launch {pairs}; image mean "
+            f"{float(img.mean()):.5f}", t0)
+    rec.hold_every("18c glass BDPT")
+    bdpt_against_cpu("18c glass", scene, glass_scene(device="cpu")[0], cfg)
+
+
+def phase18d(soft):
+    """18d: BDPT on the soft-shadow scene at 4 spp through the cull kernel
+    and K4; lanes 72,000-87,999 re-traced through the plain intersector,
+    bitwise."""
+    cfg = dataclasses.replace(SOFT_SHADOW_CFG, spp=4)
+    nq = sum(bdpt_queries(cfg.max_depth, "area"))
+    img, launched, _ = render_numbers(
+        f"18d soft shadow {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth} BDPT", lambda: bdpt_render(soft, cfg), 18)
+    check_bdpt_launches("18d", launched,
+                        {"tile_cull": nq, "intersect_gather": nq})
+    t0 = time.perf_counter()
+    with Recorder("intersect_gather") as rec, CullRecorder() as cull:
+        bdpt_render(soft, cfg)
+        torch.cuda.synchronize()
+    n, ms, pairs = rec.summary()
+    nc, cull_ms = cull.summary()
+    log(18, f"18d K4: {n} launches, {ms:.4f} ms mean by CUDA events, "
+            f"admitted pairs per launch {pairs}; cull: {nc} launches, "
+            f"{cull_ms:.4f} ms mean; image mean {float(img.mean()):.5f} "
+            f"[{smi()}]", t0)
+    lanes = tb._bdpt_lane_uniforms(soft, cfg, 0, "area")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rad, _ = bdpt_body(soft, cfg, lanes, "area", 0.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # a vertex: 24 floats (pos, ns, diffuse, beta, emit, spec, win, the
+    # two densities, shin) and 3 bools; two subpaths of max_depth each
+    vbytes = 99 * 2 * cfg.max_depth * rad.shape[0]
+    log(18, f"18d device memory of the body on {rad.shape[0]} lanes: peak "
+            f"{peak / 1e9:.3f} GB above its inputs, of it the two walks' "
+            f"vertices {vbytes / 1e9:.3f} GB [{smi()}]")
+    lo = 180 * cfg.width
+    sl = slice(lo, lo + CROP_SOFT)
+    t0 = time.perf_counter()
+    with plain_intersector():
+        rad_p, _ = bdpt_body(soft, cfg, lanes_on(lanes, DEV, sl), "area",
+                             0.0)
+    same = torch.equal(rad[sl], rad_p)
+    log(18, f"18d plain intersector on lanes {sl.start}-{sl.stop} (a crop): "
+            f"bitwise the render's lanes {same}, max abs diff "
+            f"{float((rad[sl] - rad_p).abs().max()):.3g}", t0)
+    check(same, "18d: the crop differs from the plain intersector")
+
+
+def phase18_big(scene, cfg):
+    """18e: BDPT on the big mesh through K5 (one sorted launch a query);
+    lanes 32,768-34,815 bitwise the plain walk."""
+    t0 = time.perf_counter()
+    nq = sum(bdpt_queries(cfg.max_depth, "area"))
+    img, launched, _ = render_numbers(
+        f"18e big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth} BDPT", lambda: bdpt_render(scene, cfg), 18)
+    check_bdpt_launches("18e", launched, {"treelet_walk": nq})
+    lanes = tb._bdpt_lane_uniforms(scene, cfg, 0, "area")
+    rad, _ = bdpt_body(scene, cfg, lanes, "area", 0.0)
+    lo = (cfg.height // 2) * cfg.width
+    sl = slice(lo, lo + CROP_BIG)
+    crop = lanes_on(lanes, DEV, sl)
+    rad_k, _ = bdpt_body(scene, cfg, crop, "area", 0.0)
+    with plain_treelet():
+        rad_p, _ = bdpt_body(scene, cfg, crop, "area", 0.0)
+    check(bvh_mod.PLAIN_WALKS > 0, "18e: the crop ran no plain walk")
+    same = torch.equal(rad_k, rad_p) and torch.equal(rad[sl], rad_k)
+    log(18, f"18e big mesh: lanes {sl.start}-{sl.stop} (a crop) through K5 "
+            f"and through the plain walk, and the render's own lanes there, "
+            f"bitwise equal {same}; image mean {float(img.mean()):.5f}", t0)
+    check(same, "18e: the crop differs from the plain walk")
+    return time.perf_counter() - t0
+
+
+def pixel_sigma(samples):
+    """The standard error of an image mean from its per-pixel sample
+    variance: samples (H, W, spp, 3) -> float."""
+    s = samples.double().mean(dim=-1)
+    n_pix = s.shape[0] * s.shape[1]
+    return float(s.var(dim=2).sum()) ** 0.5 / (s.shape[2] ** 0.5 * n_pix)
+
+
+def cv_numbers(label, out):
+    """A CV render's checks: finite, the CV image's mean within 3 sigma of
+    the plain one's; the singular pixels' share and the per-pixel
+    variance ratio (printed, no gate)."""
+    hw = out.samples.shape[:2]
+    p = hw[0] * hw[1]
+    samples = out.samples.reshape(p, -1, 3)
+    corrected, _ = cv.cv_correct(samples, -0.5 * out.grad_log_pdf.reshape(
+        p, samples.shape[1], -1))
+    v_plain = float(samples.double().var(dim=1).mean())
+    v_cv = float(corrected.double().var(dim=1).mean())
+    sigma = pixel_sigma(out.samples)
+    m_plain, m_cv = float(out.image_plain.mean()), float(out.image_cv.mean())
+    log(18, f"{label}: image means plain {m_plain:.6f}, CV {m_cv:.6f} "
+            f"(difference {abs(m_cv - m_plain):.3g}, 3 sigma {3 * sigma:.3g}"
+            f"); singular pixels {float(out.singular.double().mean()):.5f}; "
+            f"per-pixel sample variance plain {v_plain:.6g}, CV {v_cv:.6g} "
+            f"(ratio {v_plain / max(v_cv, 1e-300):.4f})")
+    check(bool(torch.isfinite(out.image_cv).all()), f"{label}: not finite")
+    check(abs(m_cv - m_plain) <= 3 * sigma, f"{label}: CV mean off")
+
+
+def phase18f(glass):
+    """18f: render_cv exact on examples/lts_cornell.py's Cornell box (no
+    kernel) and on glass at 8 spp (K3 on the forward pass only); the
+    score of GRAD_LANES glass lanes on the card against the CPU's from
+    the same uniforms, and exact against fd."""
+    scene, cfg = cornell_box_scene(**CV_CORNELL, device=DEV)
+    out, launched, _ = render_numbers(
+        f"18f render_cv exact Cornell {cfg.width}x{cfg.height}x{cfg.spp} "
+        f"depth {cfg.max_depth}", lambda: cv.render_cv(scene, cfg, 0).image_cv,
+        18)
+    check_bdpt_launches("18f Cornell", launched, {})
+    cv_numbers("18f Cornell", cv.render_cv(scene, cfg, 0))
+    gscene, gcfg = glass
+    gcfg = dataclasses.replace(gcfg, spp=CV_GLASS_SPP)
+    _, launched, _ = render_numbers(
+        f"18f render_cv exact glass {gcfg.width}x{gcfg.height}x{gcfg.spp} "
+        f"depth {gcfg.max_depth}",
+        lambda: cv.render_cv(gscene, gcfg, 0).image_cv, 18)
+    check_bdpt_launches("18f glass", launched,
+                        {"intersect_dense": 2 * gcfg.max_depth})
+    cv_numbers("18f glass", cv.render_cv(gscene, gcfg, 0))
+
+    # the render's first GRAD_LANES lanes, drawn on the CPU
+    scene_cpu = glass_scene(device="cpu")[0]
+    n = gcfg.width * gcfg.height * gcfg.spp
+    u_aa, uni, _ = cv._cv_lane_uniforms(scene_cpu, gcfg, 0, n)
+    o, d = pt.camera_rays(scene_cpu, gcfg, u_aa)
+    o, d, uni = o[:GRAD_LANES], d[:GRAD_LANES], uni[:GRAD_LANES]
+    zero_counts()
+    t0 = time.perf_counter()
+    r_k, _, g_k = cv.grad_log_pdf_exact(gscene, gcfg, o.to(DEV), d.to(DEV),
+                                        uni.to(DEV))
+    torch.cuda.synchronize()
+    wall_ex, k3_ex = time.perf_counter() - t0, ik.LAUNCHES["intersect_dense"]
+    r_c, _, g_c = cv.grad_log_pdf_exact(scene_cpu, gcfg, o, d, uni)
+    g_k, g_c = g_k.cpu(), g_c
+    ok = ((g_k - g_c).abs() <= GRAD_ATOL + GRAD_RTOL * g_c.abs()).all(dim=1)
+    frac = float(ok.double().mean())
+    log(18, f"18f score of {GRAD_LANES} glass lanes, card against CPU from "
+            f"the same uniforms: {frac:.5f} of lanes within {GRAD_ATOL} + "
+            f"{GRAD_RTOL} |g| on every slot, max abs diff "
+            f"{float((g_k - g_c).abs().max()):.3g}, radiance max abs diff "
+            f"{float((r_k.cpu() - r_c).abs().max()):.3g}; exact on the card "
+            f"{wall_ex:.4f} s, K3 launches {k3_ex}")
+    check(frac >= CPU_PIXELS, f"18f: the card's score differs on {1 - frac}")
+    check(k3_ex == 2 * gcfg.max_depth, f"18f exact: {k3_ex} K3 launches")
+    zero_counts()
+    t0 = time.perf_counter()
+    _, _, g_f = cv.grad_log_pdf_fd(gscene, gcfg, o.to(DEV), d.to(DEV),
+                                   uni.to(DEV), step=FD_STEP_TEST)
+    torch.cuda.synchronize()
+    wall_fd, k3_fd = time.perf_counter() - t0, ik.LAUNCHES["intersect_dense"]
+    close = torch.isclose(g_k, g_f.cpu(), rtol=FD_CLOSE, atol=FD_CLOSE)
+    share = float(close.double().mean())
+    log(18, f"18f fd (step {FD_STEP_TEST}) on the card: {wall_fd:.4f} s, K3 "
+            f"launches {k3_fd} ((4 D + 1) x {2 * gcfg.max_depth}); exact "
+            f"against fd {share:.5f} of slots within {FD_CLOSE} (limit "
+            f"{FD_SHARE})")
+    check(k3_fd == (4 * gcfg.max_depth + 1) * 2 * gcfg.max_depth,
+          f"18f fd: {k3_fd} K3 launches")
+    check(share > FD_SHARE, f"18f: exact against fd on {share}")
+
+
+def phase18(glass, soft):
+    """18a-18d and 18f (18e after phase 12: phase18_big)."""
+    t0 = time.perf_counter()
+    phase18a()
+    phase18b()
+    phase18c(glass)
+    phase18d(soft)
+    phase18f(glass)
+    wall = time.perf_counter() - t0
+    log(18, "18a-18d, 18f done", t0)
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3811,6 +4207,7 @@ def main():
     phase15_split(glass)
     wall16 = phase16(glass, soft)
     wall17 = phase17(glass, soft)
+    wall18 = phase18(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -3866,6 +4263,8 @@ def main():
     log(16, f"phase 16 in all {wall16:.2f} s")
     wall17 += phase17_big(scene, cfg)
     log(17, f"phase 17 in all {wall17:.2f} s")
+    wall18 += phase18_big(scene, cfg)
+    log(18, f"phase 18 in all {wall18:.2f} s")
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(

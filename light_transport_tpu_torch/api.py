@@ -1,5 +1,5 @@
 """Public API: the photon engine and the camera render (path tracer,
-adaptive path tracer and Whitted)."""
+adaptive path tracer, Whitted and BDPT)."""
 
 from __future__ import annotations
 
@@ -25,19 +25,19 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
     ``integrator``: ``"path"``, the NEE path tracer
     (``cfg.fresnel_mode="split"`` renders through the both-branch Fresnel
     tracer), ``"adaptive"``, the path tracer with the budget spent over
-    variance-driven rounds, or ``"whitted"``, the Whitted ray tracer (one
-    ray a pixel).  The Sobol' sampler and the thin lens apply to the path
-    and adaptive integrators.  The JAX package's BDPT integrator is not
-    ported yet (ROADMAP)."""
-    if integrator == "bdpt":
-        raise NotImplementedError(
-            "integrator='bdpt' is not ported yet (ROADMAP); the port renders "
-            "integrator='path', 'adaptive' and 'whitted'")
-    if integrator not in ("path", "adaptive", "whitted"):
+    variance-driven rounds, ``"whitted"``, the Whitted ray tracer (one ray
+    a pixel), or ``"bdpt"``, bidirectional path tracing with MIS (area,
+    point and mixed light families, light tracing on).  The Sobol'
+    sampler and the thin lens apply to the path and adaptive integrators
+    only.  The control-variates render has its own entry,
+    ``integrators.control_variates.render_cv`` (iid draws: it refuses the
+    Sobol' sampler)."""
+    if integrator not in ("path", "adaptive", "whitted", "bdpt"):
         raise ValueError(f"unknown integrator: {integrator}")
     cfg = cfg or RenderConfig()
-    if integrator == "whitted":
-        # one deterministic ray a pixel: no sampler and no lens to sample
+    if integrator in ("whitted", "bdpt"):
+        # Whitted traces one deterministic ray a pixel; BDPT draws its own
+        # streams, and its camera importance assumes a pinhole
         if cfg.sampler != "uniform":
             raise ValueError(
                 f"sampler={cfg.sampler!r} applies to the path tracer only "
@@ -70,6 +70,10 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
         )
 
         return render_whitted(scene, cfg, seed, ray_chunk=ray_chunk)
+    if integrator == "bdpt":
+        from light_transport_tpu_torch.integrators.bdpt import render_bdpt
+
+        return render_bdpt(scene, cfg, seed, ray_chunk=ray_chunk)
     from light_transport_tpu_torch.integrators import path_tracer
 
     render_one = (path_tracer.render_image_split

@@ -5,7 +5,9 @@ tensor, as in ``light_transport_tpu.core.rng``.  The port draws the tensor
 from a ``torch.Generator`` on the device; JAX's threefry stream is not
 reproduced, so tests hand both packages the same numbers.
 :func:`fold_seed` derives the seeds of a run's parts (supersteps,
-progressive passes) from the run's seed.
+progressive passes) from the run's seed.  :func:`logit` and
+:func:`sigmoid` map the BSDF slots to and from the control variates'
+logit space.
 """
 
 from __future__ import annotations
@@ -31,6 +33,19 @@ def path_uniforms(gen: torch.Generator, lanes: int, max_depth: int,
     u = torch.rand((lanes, max_depth, NUM_U), generator=gen, dtype=dtype,
                    device=gen.device)
     return u.clamp_(min=torch.finfo(dtype).tiny)
+
+
+def logit(u: torch.Tensor) -> torch.Tensor:
+    """The reference's logit transform of uniforms, ``log(u) - log1p(-u)``
+    (JAX's ``core.rng.logit``)."""
+    return torch.log(u) - torch.log1p(-u)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The standard sigmoid, the inverse of :func:`logit` (JAX's
+    ``core.rng.sigmoid``; the reference's own ``1/(1+exp(x))`` mirrors its
+    uniforms, which JAX and the port do not)."""
+    return torch.sigmoid(x)
 
 
 def fold_seed(seed: int, index: int) -> int:

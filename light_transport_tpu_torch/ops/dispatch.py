@@ -35,6 +35,11 @@ The other thresholds and the wavefront's schedule were tuned on a TPU and
 have not been measured on the card.  Inactive lanes (``active``) get an
 empty ray interval on every path but the brute force and report no hit.
 
+As in JAX, intersection is not differentiated: every query takes its
+rays ``detach()``ed and returns a hit (an occlusion mask, a
+transmittance) with no graph, so a caller's gradient (the control
+variates' score) stops at the intersector on either device.
+
 A scene's analytic spheres and planes (``scene.analytic``) are tested in
 plain PyTorch after the triangle query, on every route: the nearer hit
 wins (``Hit.kind`` and ``Hit.prim`` say which primitive; as in JAX,
@@ -140,6 +145,7 @@ def scene_intersect(scene, origins, directions,
     the batch is a coherent camera grid (bounce 0), which past
     ``MXU_MAX_TRIS`` takes the single-launch treelet kernel.  A watertight
     scene tests every lane, as JAX's does; callers mask the inactive."""
+    origins, directions = origins.detach(), directions.detach()
     if scene.watertight:
         hit = intersect.intersect_rays_watertight(origins, directions,
                                                   scene.mesh,
@@ -163,7 +169,8 @@ def scene_intersect(scene, origins, directions,
     else:
         hit = intersect.intersect_rays(origins, directions, scene.mesh,
                                        ray_chunk=ray_chunk)
-    return _merge_analytic(scene, hit, origins, directions)
+    hit = _merge_analytic(scene, hit, origins, directions)
+    return hit._replace(t=hit.t.detach())
 
 
 def _merge_analytic(scene, hit, origins, directions):
@@ -177,7 +184,8 @@ def _merge_analytic(scene, hit, origins, directions):
         intersect_analytic,
     )
 
-    t_a, kind_a, idx_a = intersect_analytic(prims, origins, directions)
+    t_a, kind_a, idx_a = intersect_analytic(prims, origins.detach(),
+                                            directions.detach())
     a_wins = t_a < torch.where(hit.valid, hit.t, float("inf"))
     return intersect.Hit(
         t=torch.where(a_wins, t_a, hit.t),
@@ -191,6 +199,7 @@ def scene_occluded(scene, origins, directions, max_dist,
                    ray_chunk: Optional[int] = None, active=None):
     """Any-hit visibility against the scene; inactive lanes are skipped and
     report unoccluded."""
+    origins, directions = origins.detach(), directions.detach()
     if scene.watertight:
         md = _t_max(origins, None, max_dist)
         if active is not None:
@@ -295,4 +304,4 @@ def scene_transmittance(scene, origins, directions, max_dist,
     trans = torch.where((still & occ_tail)[:, None], 0.0, trans)
     return torch.where((still & ~occ_tail)[:, None],
                        trans * torch.exp(-pend_sig * remaining[:, None]),
-                       trans)
+                       trans).detach()

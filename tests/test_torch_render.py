@@ -314,12 +314,14 @@ def test_unported_options_raise(change):
 
 
 def test_unported_integrators_raise():
-    """BDPT raises; Whitted and adaptive, ported since, render through
+    """Whitted, adaptive and BDPT, ported since, render through
     ``api.render``."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.render(scene, cfg, integrator="bdpt")
+    from light_transport_tpu_torch.integrators.bdpt import render_bdpt
+
+    img = api.render(scene, cfg, seed=2, integrator="bdpt")
+    assert torch.equal(img, render_bdpt(scene, cfg, 2))
     from light_transport_tpu_torch.integrators.adaptive import render_adaptive
     from light_transport_tpu_torch.integrators.whitted import render_whitted
 

@@ -153,6 +153,8 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.integrators.path_tracer\n"
         "import light_transport_tpu_torch.integrators.whitted\n"
         "import light_transport_tpu_torch.integrators.adaptive\n"
+        "import light_transport_tpu_torch.integrators.bdpt\n"
+        "import light_transport_tpu_torch.integrators.control_variates\n"
         "import light_transport_tpu_torch.ops.dispatch\n"
         "import light_transport_tpu_torch.ops.feature_probes\n"
         "import light_transport_tpu_torch.ops.intersect\n"
