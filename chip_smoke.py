@@ -176,6 +176,7 @@ import ctypes
 import dataclasses
 import functools
 from concurrent.futures import ThreadPoolExecutor
+import io
 import json
 import math
 import os
@@ -1102,19 +1103,23 @@ def compare_hits(label, scene, o, d, active, max_dist, kernel):
     return (float(dt.max()) if dt.numel() else 0.0), recs
 
 
-def soft_shadow_scene(n_theta=176, n_phi=352):
+def soft_shadow_scene(n_theta=176, n_phi=352, sphere=None):
     """examples/soft_shadow.py's scene from the port's modules: a
     123,200-triangle turquoise sphere on a floor under a 3x3 area light.
     At n_theta=44, n_phi=88 the sphere has 7,568 triangles: 7,572 in all,
-    15 clusters, the top of K3's range."""
-    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=n_theta,
-                           n_phi=n_phi)
+    15 clusters, the top of K3's range.  ``sphere``: a TriangleMesh of
+    material 0 in place of the built sphere."""
     floor = quad_triangles((-8, -0.5, -8), (-8, -0.5, 8), (8, -0.5, 8),
                            (8, -0.5, -8))
     lq = quad_triangles((-1.5, 6, -1.5), (1.5, 6, -1.5), (1.5, 6, 1.5),
                         (-1.5, 6, 1.5))
+    if sphere is None:
+        sph = sphere_triangles(center=(0, 1, 0), radius=1.5,
+                               n_theta=n_theta, n_phi=n_phi)
+        sphere = TriangleMesh.build(sph, np.zeros(len(sph), np.int32),
+                                    device=DEV)
     mesh = concat_meshes([
-        TriangleMesh.build(sph, np.zeros(len(sph), np.int32), device=DEV),
+        sphere,
         TriangleMesh.build(floor, np.asarray([1, 1], np.int32), device=DEV),
         TriangleMesh.build(lq, np.asarray([2, 2], np.int32),
                            np.asarray([True, True]), device=DEV),
@@ -4166,6 +4171,393 @@ def phase18(glass, soft):
     return wall
 
 
+# --------------------------------------------------------------------------
+# phase 19: the front ends and the sharded BDPT render
+# --------------------------------------------------------------------------
+
+BDPT_SHARDS = (1, 2, 3)  # 3 pads 2 lanes of a 40,000- or 640,000-lane render
+BDPT_SHARD_ATOL = 5e-6  # tests/test_sharding.py:76 (splat plane and image)
+# K3 launches of one CLI render of the glass preset (100x100x4, depth 3)
+CLI_K3 = {"path": 6, "adaptive": 24, "whitted": 45, "bdpt": 15, "cv": 6}
+CLI_PHOTONS = 100_000
+GUI_STATS = ["preset", "integrator", "size", "spp", "max_depth", "seed",
+             "triangles", "elapsed_s", "mean"]
+PROFILE_RTOL, PROFILE_ATOL_MS = 0.1, 2.0  # timed against CUDA events
+
+
+@contextlib.contextmanager
+def assembled():
+    """Each (radiance, splat) a BDPT render hands to ``_bdpt_assemble``
+    while installed, in call order."""
+    calls = []
+    orig = tb._bdpt_assemble
+
+    def spy(cfg, radiance, splat):
+        calls.append((radiance, splat))
+        return orig(cfg, radiance, splat)
+
+    tb._bdpt_assemble = spy
+    try:
+        yield calls
+    finally:
+        tb._bdpt_assemble = orig
+
+
+def phase19a_one(label, scene, cfg, names):
+    """render_bdpt_sharded at BDPT_SHARDS virtual shards against one
+    unsharded ``_bdpt_body`` on the same lanes: radiance rows bitwise at
+    one shard and within SHARDED_ATOL at more (the bitwise share logged),
+    the splat plane (in image units) and the image within
+    BDPT_SHARD_ATOL beside an unsharded rerun's spread, and 15 launches
+    of each kernel in ``names`` a shard, counted from 0."""
+    family, q = tb._light_family(scene)
+    n = cfg.width * cfg.height * cfg.spp
+    nq = sum(bdpt_queries(cfg.max_depth, family))
+    lanes = tb._bdpt_lane_uniforms(scene, cfg, 0, family)
+    rad0, splat0 = bdpt_body(scene, cfg, lanes, family, q)
+    splat_rerun = float((bdpt_body(scene, cfg, lanes, family, q)[1]
+                         - splat0).abs().max()) / n
+    ref = tb._bdpt_assemble(cfg, rad0, splat0)
+    for k in BDPT_SHARDS:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with assembled() as calls:
+            img = pm.render_bdpt_sharded(scene, cfg, 0, mesh=pm.make_mesh(k))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {m: c for m, c in ik.LAUNCHES.items() if c}
+        rad, splat = calls[0]
+        rows = float((rad == rad0).all(dim=1).double().mean())
+        rad_err = float((rad - rad0).abs().max())
+        splat_err = float((splat - splat0).abs().max()) / n
+        img_err = float((img - ref).abs().max())
+        log(19, f"19a {label} render_bdpt_sharded at {k} shard(s) ({n} "
+                f"lanes, {(-n) % k} pad): radiance rows bitwise the "
+                f"unsharded body's on {rows:.6f}, max abs diff {rad_err:.3g}"
+                f"; splat plane / n max abs diff {splat_err:.3g} (the "
+                f"unsharded body's rerun {splat_rerun:.3g}), image "
+                f"{img_err:.3g}; launches {launched}; wall {wall:.4f} s "
+                f"[{smi()}]")
+        check(launched == {m: nq * k for m in names},
+              f"19a {label}, {k}: launches {launched}, expected {nq} of "
+              f"{names} a shard")
+        if k == 1:
+            check(torch.equal(rad, rad0), f"19a {label}: one shard's "
+                                          f"radiance rows not bitwise")
+        check(rad_err <= SHARDED_ATOL, f"19a {label}, {k}: rows {rad_err}")
+        check(splat_err <= BDPT_SHARD_ATOL and img_err <= BDPT_SHARD_ATOL,
+              f"19a {label}, {k}: splat {splat_err}, image {img_err}")
+        check(bool(torch.isfinite(img).all()), f"19a {label}: not finite")
+
+
+def phase19a(glass, soft):
+    """19a: the sharded BDPT render on glass (K3) and on the soft-shadow
+    scene at 4 spp (the cull kernel and K4, phase 18d's lanes)."""
+    t0 = time.perf_counter()
+    for label, scene, cfg, names in (
+            ("glass", *glass, ("intersect_dense",)),
+            ("soft shadow", soft, dataclasses.replace(SOFT_SHADOW_CFG,
+                                                      spp=4),
+             ("tile_cull", "intersect_gather"))):
+        phase19a_one(f"{label} {cfg.width}x{cfg.height}x{cfg.spp} d"
+                     f"{cfg.max_depth}", scene, cfg, names)
+    log(19, "19a done", t0)
+
+
+def quantized_match(label, got, first, second):
+    """PNG pixels ``got`` against the API image ``first`` quantized as the
+    CLI writes it: equal when a rerun of the API call (``second``) is
+    bitwise ``first``; else within one level (a rerun's float atomics
+    move a value across a level), the levels that differ logged beside
+    the rerun's."""
+    from light_transport_tpu_torch.utils.png import quantize
+
+    qa, qb = quantize(first).astype(int), quantize(second).astype(int)
+    diff = np.abs(got.astype(int) - qa)
+    exact = bool(torch.equal(first, second))
+    log(19, f"{label}: PNG pixels against the API image quantized: "
+            f"{int((diff > 0).sum())} values differ (max {int(diff.max())}); "
+            f"the API rerun bitwise {exact}, its quantized values differing "
+            f"{int((qa != qb).sum())}")
+    check(got.shape == qa.shape, f"{label}: shape {got.shape}")
+    check(int(diff.max()) <= (0 if exact else 1), f"{label}: PNG differs")
+
+
+def cli_line(args):
+    """``cli.main(args)``; returns its standard output."""
+    from light_transport_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    check(rc == 0, f"cli {args}: exit {rc}")
+    return buf.getvalue()
+
+
+def phase19b(glass, tmp):
+    """19b: the CLI on the card (no ``--device``): ``render --preset
+    glass`` with each integrator at the preset's size, ``--preview``,
+    ``--sharded --integrator bdpt``; ``simulate --preset demo`` against
+    api.simulate, and ``--checkpoint`` run, then resumed."""
+    import base64
+
+    from light_transport_tpu_torch.utils.png import decode_png
+
+    scene, cfg = glass
+    direct = {
+        "path": lambda: lt.render(scene, cfg, seed=0),
+        "adaptive": lambda: lt.render(scene, cfg, seed=0,
+                                      integrator="adaptive"),
+        "whitted": lambda: lt.render(scene, cfg, seed=0,
+                                     integrator="whitted"),
+        "bdpt": lambda: bdpt_render(scene, cfg),
+        "cv": lambda: cv.render_cv(scene, cfg, 0).image_cv,
+        "bdpt --sharded": lambda: pm.render_bdpt_sharded(scene, cfg, 0),
+    }
+    for name, fn in direct.items():
+        integ, *extra = name.split()
+        out = os.path.join(tmp, f"{integ}{len(extra)}.png")
+        args = ["render", "--preset", "glass", "--integrator", integ,
+                "--seed", "0", "--out", out, *extra]
+        if name == "path":
+            args.append("--preview")
+        zero_counts()
+        t0 = time.perf_counter()
+        cli_line(args)
+        wall = time.perf_counter() - t0
+        launched = {m: c for m, c in ik.LAUNCHES.items() if c}
+        with open(out, "rb") as f:
+            png = decode_png(f.read())
+        log(19, f"19b cli {' '.join(args[:5] + extra)}: {wall:.3f} s, "
+                f"launches {launched}")
+        check(launched == {"intersect_dense": CLI_K3[integ]},
+              f"19b {name}: launches {launched}")
+        quantized_match(f"19b {name}", png, fn(), fn())
+        if name == "path":
+            page = open(os.path.splitext(out)[0] + ".html").read()
+            b64 = re.search(r'base64,([^"]+)"', page).group(1)
+            same = np.array_equal(decode_png(base64.b64decode(b64)), png)
+            log(19, f"19b --preview: {len(page)} bytes of HTML, its image "
+                    f"the PNG's {same}")
+            check(same and "triangles" in page, "19b: the preview")
+
+    from light_transport_tpu_torch import cli
+    from light_transport_tpu_torch.transport import photon as ph
+    from light_transport_tpu_torch.models.presets import demo_homogeneous
+
+    def sim_json(extra):
+        t0 = time.perf_counter()
+        d = json.loads(cli_line(["simulate", "--preset", "demo",
+                                 "--photons", str(CLI_PHOTONS), "--seed",
+                                 "0", *extra]).strip().splitlines()[-1])
+        return d, time.perf_counter() - t0
+
+    got, wall = sim_json([])
+    medium, pcfg = demo_homogeneous(device=DEV)
+    pcfg = dataclasses.replace(pcfg, n_photons=CLI_PHOTONS)
+    t0 = time.time()
+    want = cli.simulate_summary(lt.simulate(medium, pcfg, seed=0), t0)
+    same = {k: got[k] == want[k] for k in want if k != "seconds"}
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-300)
+              for k in same)
+    log(19, f"19b cli simulate --preset demo --photons {CLI_PHOTONS}: "
+            f"{got}; CLI {wall:.3f} s, api.simulate {want['seconds']:.3f} "
+            f"s; keys {list(got) == list(want)}, values equal {same}, max "
+            f"relative difference {rel:.3g}")
+    check(list(got) == list(want), "19b simulate: the JSON keys")
+    check(got["photons"] == CLI_PHOTONS and same["photons"]
+          and same["steps"], "19b simulate: photons or steps differ")
+    check(rel <= 1e-9, f"19b simulate: differs from api.simulate by {rel}")
+    check(abs(got["energy"] - 1.0) <= 1e-4, f"19b energy {got['energy']}")
+
+    ck = os.path.join(tmp, "run.npz")
+    first, wall1 = sim_json(["--checkpoint", ck])
+    runs = [0]
+    orig = ph.simulate_photons
+
+    def counted(*a, **k):
+        runs[0] += 1
+        return orig(*a, **k)
+
+    ph.simulate_photons = counted
+    try:
+        again, wall2 = sim_json(["--checkpoint", ck])
+    finally:
+        ph.simulate_photons = orig
+    first.pop("seconds"), again.pop("seconds")
+    log(19, f"19b cli simulate --checkpoint: {wall1:.3f} s, "
+            f"{os.path.getsize(ck)} bytes of snapshot; resumed from it in "
+            f"{wall2:.3f} s with {runs[0]} batches run, the same line "
+            f"{again == first}; energy {first['energy']}")
+    check(again == first and runs[0] == 0, "19b: the resumed run differs")
+    check(abs(first["energy"] - 1.0) <= 1e-4, "19b checkpoint: energy")
+
+
+def write_obj(path, tris):
+    """(T, 3, 3) float64 triangles as an OBJ: three ``v`` records a
+    triangle (exact decimal round trip) and one ``f``."""
+    with open(path, "w") as f:
+        f.write("".join(f"v {x!r} {y!r} {z!r}\n"
+                        for x, y, z in tris.reshape(-1, 3).tolist()))
+        f.write("".join(f"f {3 * i + 1} {3 * i + 2} {3 * i + 3}\n"
+                        for i in range(tris.shape[0])))
+
+
+def phase19c(soft, tmp):
+    """19c: the soft-shadow sphere through an OBJ file and ``load_obj``:
+    the mesh's fields bitwise the built mesh's, and phase 10's scene with
+    it rendered (400x400x4, depth 3, through the cull kernel and K4)
+    bitwise the original scene's render."""
+    from light_transport_tpu_torch.scene.objio import load_obj
+
+    t0 = time.perf_counter()
+    sph = sphere_triangles(center=(0, 1, 0), radius=1.5, n_theta=176,
+                           n_phi=352)
+    path = os.path.join(tmp, "sphere.obj")
+    write_obj(path, sph)
+    t1 = time.perf_counter()
+    mesh, dim = load_obj(path)
+    t2 = time.perf_counter()
+    built = TriangleMesh.build(sph, np.zeros(len(sph), np.int32), device=DEV)
+    same = {f: bool(torch.equal(getattr(mesh, f), getattr(built, f)))
+            for f in ("v0", "e1", "e2", "normal", "centroid", "mat_id",
+                      "is_light")}
+    log(19, f"19c OBJ of {len(sph)} triangles, {os.path.getsize(path)} "
+            f"bytes: written {t1 - t0:.2f} s, load_obj {t2 - t1:.2f} s on "
+            f"{mesh.device}; dimension {dim}; fields bitwise the built "
+            f"mesh's {same}")
+    check(all(same.values()) and mesh.device == DEV, "19c: the OBJ mesh")
+    check(dim == float(np.abs(sph).max()), f"19c: dimension {dim}")
+    scene = soft_shadow_scene(sphere=mesh)
+    cfg = dataclasses.replace(SOFT_SHADOW_CFG, spp=4)
+    want = lt.render(soft, cfg, seed=0)
+    zero_counts()
+    got = lt.render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    launched = {m: c for m, c in ik.LAUNCHES.items() if c}
+    equal = bool(torch.equal(got, want))
+    log(19, f"19c the OBJ scene at {cfg.width}x{cfg.height}x{cfg.spp} depth "
+            f"{cfg.max_depth}: launches {launched}, bitwise the soft-shadow "
+            f"scene's render {equal}, image mean {float(got.mean()):.5f}",
+        t0)
+    check(launched == {"tile_cull": 2 * cfg.max_depth,
+                       "intersect_gather": 2 * cfg.max_depth},
+          f"19c: launches {launched}")
+    check(equal, "19c: the OBJ scene renders another image")
+
+
+def phase19d(glass):
+    """19d: the GUI server on the card: the form, a glass render at the
+    preset's size, /img.png against the API image, /stats.json, and a bad
+    request answered with 500 while the server keeps serving."""
+    import urllib.error
+    import urllib.request
+
+    from light_transport_tpu_torch import gui
+    from light_transport_tpu_torch.utils.png import decode_png
+
+    def get(path):
+        return urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.server_port}{path}", timeout=300).read()
+
+    t0 = time.perf_counter()
+    srv = gui.serve(port=0, background=True)
+    try:
+        check(b"<form" in get("/"), "19d: no form")
+        zero_counts()
+        t1 = time.perf_counter()
+        page = get("/render?preset=glass&integrator=path&seed=0").decode()
+        wall = time.perf_counter() - t1
+        launched = {m: c for m, c in ik.LAUNCHES.items() if c}
+        stats = json.loads(get("/stats.json"))
+        log(19, f"19d GUI /render?preset=glass: {wall:.3f} s, launches "
+                f"{launched}; stats {stats}")
+        check("elapsed_s" in page, "19d: the page has no stats")
+        check(launched == {"intersect_dense": CLI_K3["path"]},
+              f"19d: launches {launched}")
+        check(list(stats) == GUI_STATS and stats["size"] == "100x100"
+              and stats["triangles"] == glass[0].mesh.num_triangles,
+              f"19d: stats {stats}")
+        scene, cfg = glass
+        quantized_match("19d /img.png", decode_png(get("/img.png")),
+                        lt.render(scene, cfg, seed=0),
+                        lt.render(scene, cfg, seed=0))
+        try:
+            get("/render?preset=nope")
+            check(False, "19d: a bad request was answered")
+        except urllib.error.HTTPError as e:
+            body = e.read().decode()
+            check(e.code == 500 and "unknown preset" in body,
+                  f"19d: bad request {e.code} {body[:80]}")
+        check(b"<form" in get("/"), "19d: the server stopped serving")
+        log(19, "19d bad request: 500 with the error in the page, the "
+                "server still serves", t0)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def phase19e(glass):
+    """19e: utils.profiling on the glass render: ``timed`` and
+    ``compile_and_steady`` against CUDA events around the same calls,
+    and ``trace`` writing a Chrome trace that names K3."""
+    from light_transport_tpu_torch.utils import profiling
+
+    scene, cfg = glass
+
+    def fn():
+        return lt.render(scene, cfg, seed=0)
+
+    def with_events(call):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        out = call()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    t0 = time.perf_counter()
+    (img, secs), ev_ms = with_events(lambda: profiling.timed(fn))
+    first, best = profiling.compile_and_steady(fn)
+    steady = min(with_events(fn)[1] for _ in range(3))
+    log(19, f"19e timed {secs * 1e3:.3f} ms, CUDA events around it "
+            f"{ev_ms:.3f} ms; compile_and_steady first {first * 1e3:.3f} "
+            f"ms, best steady {best * 1e3:.3f} ms, CUDA events' best of 3 "
+            f"{steady:.3f} ms [{smi()}]")
+    check(img.is_cuda and bool(torch.isfinite(img).all()), "19e: the image")
+    for label, host, dev in (("timed", secs * 1e3, ev_ms),
+                             ("best steady", best * 1e3, steady)):
+        check(abs(host - dev) <= PROFILE_RTOL * dev + PROFILE_ATOL_MS,
+              f"19e {label}: {host} ms against events' {dev} ms")
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            fn()
+            torch.cuda.synchronize()
+        files = os.listdir(d)
+        text = Path(d, files[0]).read_text() if files else ""
+    named = text.count("intersect_dense_kernel")
+    log(19, f"19e trace: {files}, {len(text)} bytes, K3 "
+            f"(intersect_dense_kernel) named {named} times", t0)
+    check(len(files) == 1 and named > 0, "19e: the trace names no K3")
+
+
+def phase19(glass, soft):
+    """19a-19e."""
+    t0 = time.perf_counter()
+    phase19a(glass, soft)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase19b(glass, tmp)
+        phase19c(soft, tmp)
+    phase19d(glass)
+    phase19e(glass)
+    wall = time.perf_counter() - t0
+    log(19, f"phase 19 in all {wall:.2f} s")
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4208,6 +4600,7 @@ def main():
     wall16 = phase16(glass, soft)
     wall17 = phase17(glass, soft)
     wall18 = phase18(glass, soft)
+    phase19(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,

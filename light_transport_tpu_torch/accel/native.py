@@ -38,6 +38,16 @@ def _load() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """Whether the native library loads (building it first if missing);
+    :func:`build_native` raises where it cannot."""
+    try:
+        _load()
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def build_native(verts: np.ndarray, centroid: np.ndarray, max_leaf: int):
     """Same contract as ``accel.bvh._build_host``."""
     lib = _load()

@@ -2,9 +2,10 @@
 
 The counterpart of ``light_transport_tpu.ops.sampling``: the photon half
 (launch specular reflectance, exact Fresnel reflectance, the
-Henyey-Greenstein inverse CDF and the scattering rotation) and the render
-half (concentric disk, cosine and uniform hemisphere, the modified-Phong
-lobe and Schlick).  Every function maps over leading batch dims.
+Henyey-Greenstein inverse CDF and pdf, and the scattering rotation) and
+the render half (concentric disk, cosine and uniform hemisphere, the
+modified-Phong lobe and Schlick).  Every function maps over leading
+batch dims.
 """
 
 from __future__ import annotations
@@ -114,6 +115,20 @@ def schlick_r0(n1, n2):
     """R0 = ((n1-n2)/(n1+n2))^2."""
     r = (n1 - n2) / (n1 + n2)
     return r * r
+
+
+def henyey_greenstein_pdf(cos_theta, g):
+    """HG phase function (solid-angle pdf) of the scattering cosine
+    ``cos_theta = dot(new_dir, old_dir)``: forward-peaked for g > 0,
+    p = (1-g^2) / (4 pi (1+g^2-2g cos)^{3/2}), the denominator clamped at
+    1e-12.
+
+    The reference's never-called stub (src/medium_samples.py:14-16) has
+    ``+2g cos`` in the denominator, the density of the negated cosine;
+    this is the density that :func:`sample_henyey_greenstein` and
+    :func:`scatter_direction` draw from."""
+    denom = torch.clamp(1.0 + g * g - 2.0 * g * cos_theta, min=1e-12)
+    return lm.INV_4PI * (1.0 - g * g) / (denom * torch.sqrt(denom))
 
 
 def sample_henyey_greenstein(g, u):

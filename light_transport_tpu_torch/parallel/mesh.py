@@ -359,3 +359,58 @@ def render_sharded(scene, cfg: RenderConfig, seed: int = 0,
         dist.all_gather(out, radiance)
         radiance = torch.cat(out)
     return pt._to_image(radiance[:n], cfg)[0]
+
+
+def render_bdpt_sharded(scene, cfg: RenderConfig, seed: int = 0,
+                        mesh: Optional[Mesh] = None,
+                        ray_chunk: Optional[int] = None,
+                        light_tracing: bool = True):
+    """BDPT render with the camera and light-walk lanes split over the
+    mesh (every (s, t) strategy; area, point and mixed light families).
+
+    The lanes dict is drawn at full width as ``bdpt.render_bdpt`` draws it
+    (``bdpt._bdpt_lane_uniforms``), so every lane's transport is the
+    unsharded render's.  It is padded to a multiple of the shard count
+    (``mask`` False, uniforms 0, direction (0, 0, 1)) and cut into
+    contiguous shards, each run through ``bdpt._bdpt_body``, which bars
+    the pad lanes from splatting.  The radiance rows are gathered in lane
+    order over the process group if there is one; the splat planes are
+    summed over the local shards in shard order, then by
+    ``all_reduce(SUM)``, so splat pixels match the unsharded scatter to
+    float tolerance, not bitwise.  The mesh defaults to the scene's
+    device, and every shard traces on it."""
+    from light_transport_tpu_torch.integrators import bdpt as B
+
+    mesh = mesh or make_mesh(device_type=scene.device.type)
+    if any(d != scene.device for d in mesh.devices):
+        raise ValueError(f"render_bdpt_sharded traces on the scene's device "
+                         f"{scene.device}; the mesh holds {mesh.devices}")
+    mode, q_point = B._light_family(scene)
+    n = cfg.height * cfg.width * cfg.spp
+    n_sh = mesh.n_shards
+    pad = (-n) % n_sh
+    lanes = B._bdpt_lane_uniforms(scene, cfg, seed, mode)
+    if pad:
+        lanes = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                 for k, v in lanes.items()}
+        # keep the pad lanes' camera rays well formed (unit direction);
+        # their rows are cut away and their walks splat nothing
+        lanes["d"][n:, 2] = 1.0
+    per = (n + pad) // n_sh
+    rads, splat = [], None
+    for i in range(mesh.local_shards):
+        lo = mesh.shard_index(i) * per
+        shard = {k: v[lo:lo + per] for k, v in lanes.items()}
+        rad, sp = B._bdpt_body(scene, cfg, shard, ray_chunk, light_tracing,
+                               mode, q_point)
+        rads.append(rad)
+        splat = sp if splat is None else splat + sp
+    radiance = torch.cat(rads)
+    if mesh.world_size > 1:
+        import torch.distributed as dist
+
+        out = [torch.empty_like(radiance) for _ in range(mesh.world_size)]
+        dist.all_gather(out, radiance)
+        radiance = torch.cat(out)
+        dist.all_reduce(splat, op=dist.ReduceOp.SUM)
+    return B._bdpt_assemble(cfg, radiance[:n], splat)

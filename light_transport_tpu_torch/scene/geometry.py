@@ -101,6 +101,11 @@ class TriangleMesh:
         v0, e1, e2 = (a.astype(np.float64) for a in self.host_arrays()[:3])
         return np.stack([v0, v0 + e1, v0 + e2], axis=1)
 
+    def area(self) -> np.ndarray:
+        """Per-triangle area |e1 x e2| / 2, in float64 on host copies."""
+        e1, e2 = (a.astype(np.float64) for a in self.host_arrays()[1:3])
+        return 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+
 
 def quad_triangles(a, b, c, d) -> np.ndarray:
     """Split quad (a,b,c,d) into triangles (a,b,c), (a,c,d)."""

@@ -7,12 +7,11 @@ The counterpart of ``light_transport_tpu.scene.scene``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
 
-from light_transport_tpu_torch.accel.bvh import BVH
 from light_transport_tpu_torch.scene.geometry import TriangleMesh
 from light_transport_tpu_torch.scene.analytic import AnalyticPrims
 from light_transport_tpu_torch.scene.lights import (
@@ -20,6 +19,9 @@ from light_transport_tpu_torch.scene.lights import (
     PointLightTable,
 )
 from light_transport_tpu_torch.scene.material import MaterialTable
+
+if TYPE_CHECKING:  # accel.bvh imports scene.geometry
+    from light_transport_tpu_torch.accel.bvh import BVH
 
 # with_bvh(treelet="auto") attaches treelet tables past this triangle
 # count: the dispatch's crossover to the BVH (ops.dispatch.MXU_MAX_TRIS,

@@ -32,6 +32,7 @@ from light_transport_tpu_torch.core.config import (
     MeshTopology,
     PhotonRunConfig,
 )
+from light_transport_tpu_torch.integrators import bdpt
 from light_transport_tpu_torch.integrators import path_tracer as pt
 from light_transport_tpu_torch.models import presets
 from light_transport_tpu_torch.ops import photon_kernel as pk
@@ -188,18 +189,20 @@ t = pm.simulate_sharded(m, PhotonRunConfig(n_photons=4096, nr=8, nz=8),
 scene, cfg = presets.lts_scene(width=5, height=3, spp=1, max_depth=2,
                                device="cpu")
 img = pm.render_sharded(scene, cfg, seed=2, mesh=mesh)
+bimg = pm.render_bdpt_sharded(scene, cfg, seed=3, mesh=mesh)
 print(json.dumps(dict(shards=mesh.n_shards, launched=t.n_launched,
                       steps=t.n_steps, refl=t.refl_r.tolist(),
                       rz=t.absorb_rz.double().sum().item(),
-                      img=img.flatten().tolist())))
+                      img=img.flatten().tolist(),
+                      bdpt=bimg.flatten().tolist())))
 torch.distributed.destroy_process_group()
 """
 
 
 def test_two_process_gloo_group():
-    """``init_multihost`` + ``simulate_sharded`` and ``render_sharded`` in
-    two gloo ranks of one shard each: both ranks hold the same result,
-    that of two shards in one process."""
+    """``init_multihost`` + ``simulate_sharded``, ``render_sharded`` and
+    ``render_bdpt_sharded`` in two gloo ranks of one shard each: both
+    ranks hold the same result, that of two shards in one process."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -231,3 +234,10 @@ def test_two_process_gloo_group():
                                    device="cpu")
     ref = pt.render_image(scene, cfg, seed=2).flatten().tolist()
     assert got["img"] == ref
+    # BDPT: the gloo sum of the two ranks' splat planes is the in-process
+    # sum of two shards'
+    two = pm.render_bdpt_sharded(scene, cfg, seed=3, mesh=cpu_mesh(2))
+    assert got["bdpt"] == two.flatten().tolist()
+    np.testing.assert_allclose(
+        np.reshape(got["bdpt"], (3, 5, 3)),
+        bdpt.render_bdpt(scene, cfg, seed=3).numpy(), rtol=0, atol=5e-6)

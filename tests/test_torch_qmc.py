@@ -5,7 +5,8 @@ thin-lens camera rays against JAX's ``_pixel_camera_rays``; a Sobol' and
 lens render of the LTS Cornell box against JAX's from the same seed bits;
 the progressive Sobol' passes against the one-shot render;
 ``render_sharded`` with both bitwise ``render_image`` on a CPU mesh; and
-the pinhole uniform stream, unchanged.
+the pinhole uniform stream, unchanged: a render against the same image
+built by hand from its draws.
 
 JAX's integer build runs eagerly (integer ops round nothing, so jit
 changes no bit); its camera and tracer compiled with the tests'
@@ -15,7 +16,6 @@ within 1e-4 on >= 99 %.
 """
 
 import dataclasses
-import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -36,8 +36,6 @@ from test_torch_render import CHEAP_COMPILE, jax_scene_arrays, port_cfg
 
 torch.set_num_threads(1)
 
-PINHOLE = (pathlib.Path(__file__).parent / "golden"
-           / "torch_pinhole_lts_8x6.npy")
 BITS = (0, 7, 0xDEADBEEF, qmc.seed_bits(3))
 
 
@@ -201,18 +199,20 @@ def test_render_sharded_sobol_lens_bitwise(cornell):
 
 def test_pinhole_uniform_stream_unchanged():
     """``aperture == 0`` keeps the port's draw order (jitter, then the path
-    uniforms): a pinhole render of this tree equals the same render from
-    before the lens and the Sobol' sampler, bitwise; the lens's points
-    are drawn last."""
+    uniforms): a pinhole render equals, bitwise, the same image built by
+    hand from a generator of the same seed, jitter drawn first, path
+    uniforms second, through ``camera_rays``, ``trace_paths`` and
+    ``_to_image``; the lens's points are drawn last."""
     scene, cfg = presets.lts_scene(width=8, height=6, spp=2, max_depth=3,
                                    device="cpu")
-    img = pt.render_image(scene, cfg, seed=5)
-    assert np.array_equal(img.numpy(), np.load(PINHOLE))
     n = 8 * 6 * 2
     gen = torch.Generator().manual_seed(5)
     u_aa = torch.rand((n, 2), generator=gen)
     uni = rng.path_uniforms(gen, n, 3)
     u_lens = torch.rand((n, 2), generator=gen)
+    o, d = pt.camera_rays(scene, cfg, u_aa)
+    want = pt._to_image(pt.trace_paths(scene, cfg, o, d, uni)[0], cfg)[0]
+    assert torch.equal(pt.render_image(scene, cfg, seed=5), want)
     o, d, u = pt._camera_lanes(scene, cfg, 5)
     assert torch.equal(u, uni)
     assert torch.equal(d, pt.camera_rays(scene, cfg, u_aa)[1])

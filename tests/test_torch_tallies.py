@@ -171,6 +171,11 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.scene.lights\n"
         "import light_transport_tpu_torch.scene.material\n"
         "import light_transport_tpu_torch.scene.scene\n"
+        "import light_transport_tpu_torch.scene.objio\n"
+        "import light_transport_tpu_torch.utils.profiling\n"
+        "import light_transport_tpu_torch.utils.png\n"
+        "import light_transport_tpu_torch.cli\n"
+        "import light_transport_tpu_torch.gui\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
