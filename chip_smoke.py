@@ -166,6 +166,24 @@ script exits non-zero without the final result line):
      box and on glass at 8 spp, and 2,048 glass lanes' scores on the
      card against the CPU's and exact against fd (18f); after 17's big
      mesh, BDPT on it through K5 (18e: a crop bitwise the plain walk)
+ 19. the front ends (scripts/smoke_phase19.py runs it alone): after 18,
+     render_bdpt_sharded at 1, 2 and 3 shards (19a), the CLI (19b), the
+     soft-shadow sphere through an OBJ file (19c), the GUI server (19d)
+     and the profiling helpers (19e)
+ 20. the glossy BSDF, the emission modes, the surface detectors and the
+     example drivers (scripts/smoke_phase20.py runs it alone), after 19:
+     examples/glossy_mis.py's plate (shininess 400) under
+     emission_mode nee, mis and always, card against CPU; the glass
+     preset with GLOSSY_MAT walls through K3 (every launch held bitwise,
+     card against CPU), BDPT (every launch bitwise, card against CPU) and
+     Whitted (against the plain intersector) on it; the soft-shadow scene
+     with a glossy sphere through the cull kernel and K4, lanes
+     72,000-87,999 re-traced through the plain intersector (20a);
+     render_with_detectors on glass, its image bitwise render_image's,
+     one record tallied on both devices and the card's trace against the
+     CPU's, coplanar ties counted (20b); every examples_torch driver's
+     main() at the JAX drivers' sizes, photon_mcml at 1e5 photons a run
+     (20c: JSON lines, walls, K3 and K4 launches)
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -237,6 +255,7 @@ from light_transport_tpu_torch.scene.geometry import (
 )
 from light_transport_tpu_torch.scene.lights import sample_light_points
 from light_transport_tpu_torch.scene.material import (
+    MATERIAL_FIELDS,
     Material,
     MaterialTable,
     presets,
@@ -3839,21 +3858,21 @@ def bdpt_body(scene, cfg, lanes, family, q):
     return tb._bdpt_body(scene, cfg, lanes, None, True, family, q)
 
 
-def splat_rerun(label, scene, cfg, lanes, family, q):
+def splat_rerun(label, scene, cfg, lanes, family, q, phase=18):
     """One lane set's splat plane twice on the card: the largest relative
     difference of a bin; fails past SPLAT_RERUN_REL."""
     a = bdpt_body(scene, cfg, lanes, family, q)[1].double()
     b = bdpt_body(scene, cfg, lanes, family, q)[1].double()
     big = torch.maximum(a.abs(), b.abs())
     rel = float(((a - b).abs() / torch.where(big > 0, big, 1.0)).max())
-    log(18, f"{label}: splat plane rerun on the card, largest relative "
-            f"difference of a bin {rel:.3g} (limit {SPLAT_RERUN_REL:.3g}), "
-            f"bitwise {torch.equal(a, b)}")
+    log(phase, f"{label}: splat plane rerun on the card, largest "
+               f"relative difference of a bin {rel:.3g} (limit "
+               f"{SPLAT_RERUN_REL:.3g}), bitwise {torch.equal(a, b)}")
     check(rel <= SPLAT_RERUN_REL, f"{label}: splat rerun differs by {rel}")
     return a.float()
 
 
-def bdpt_against_cpu(label, scene, scene_cpu, cfg, seed=0):
+def bdpt_against_cpu(label, scene, scene_cpu, cfg, seed=0, phase=18):
     """One lanes dict drawn on the CPU, rendered whole on the card and its
     first CROP_CPU lanes on the CPU: per-lane radiance to 15e's limits,
     the crop's splat plane (in image units) too, beside a second card run
@@ -3868,14 +3887,15 @@ def bdpt_against_cpu(label, scene, scene_cpu, cfg, seed=0):
     crop = lanes_on(lanes, "cpu", slice(0, k))
     t0 = time.perf_counter()
     rad_cpu, splat_cpu = bdpt_body(scene_cpu, cfg, crop, family, q)
-    log(18, f"{label}: CPU BDPT of lanes 0-{k} of {n} "
-            f"{time.perf_counter() - t0:.2f} s")
+    log(phase, f"{label}: CPU BDPT of lanes 0-{k} of {n} "
+               f"{time.perf_counter() - t0:.2f} s")
     parity(f"{label} card against CPU (lanes' radiance)", rad[:k], rad_cpu,
-           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN), 18)
-    splat_k = splat_rerun(label, scene, cfg, lanes_on(crop, DEV), family, q)
+           (CPU_PIXELS, CPU_WITHIN, CPU_MEAN), phase)
+    splat_k = splat_rerun(label, scene, cfg, lanes_on(crop, DEV), family, q,
+                          phase)
     parity(f"{label} card against CPU (the crop's splat plane / {k})",
            splat_k / k, splat_cpu / k, (CPU_PIXELS, CPU_WITHIN, CPU_MEAN),
-           18)
+           phase)
     return card, rad, splat, family, q
 
 
@@ -4558,6 +4578,323 @@ def phase19(glass, soft):
     return wall
 
 
+# --------------------------------------------------------------------------
+# phase 20: the glossy BSDF, the emission modes, the surface detectors and
+# the example drivers
+# --------------------------------------------------------------------------
+
+PLATE = dict(width=96, height=96, spp=16, max_depth=3, shininess=400.0)
+PLATE_MODES = ("nee", "mis", "always")
+SOFT_CROP = slice(72_000, 88_000)  # the glossy soft shadow's re-traced lanes
+DETECTOR_RTOL = 1e-5  # energy of one record tallied on the card and the CPU
+PHASE20_PHOTONS = 100_000  # photon_mcml in phase 20 (its main(): 1e6)
+# drivers whose scenes take the cluster intersector: K3, or the cull and K4
+DRIVER_KERNELS = {"adaptive_compare": {"intersect_dense"},
+                  "hard_shadow": {"intersect_dense"},
+                  "ray_tracing": {"intersect_dense"},
+                  "refraction": {"intersect_dense"},
+                  "soft_shadow": {"tile_cull", "intersect_gather"}}
+
+
+def glossy_materials(scene, row):
+    """``scene`` with material row ``row`` replaced by GLOSSY_MAT (the
+    mesh, its derived tables and the lights unchanged)."""
+    mats = scene.materials
+    g = MaterialTable.build([presets.GLOSSY_MAT], device=scene.device)
+    fields = {}
+    for f in MATERIAL_FIELDS:
+        col = getattr(mats, f).clone()
+        col[row] = getattr(g, f)[0]
+        fields[f] = col
+    return dataclasses.replace(scene, materials=MaterialTable(**fields))
+
+
+def phase20_plate():
+    """20a: examples/glossy_mis.py's plate (shininess 400, 4 triangles:
+    the brute force) under nee, mis and always, card against CPU."""
+    from light_transport_tpu_torch.models.presets import glossy_plate_scene
+
+    scene, cfg = glossy_plate_scene(**PLATE, device=DEV)
+    scene_cpu = glossy_plate_scene(**PLATE, device="cpu")[0]
+    means = {}
+    for mode in PLATE_MODES:
+        c = dataclasses.replace(cfg, emission_mode=mode)
+        t0 = time.perf_counter()
+        zero_counts()
+        img = lt.render(scene, c, seed=0)
+        launched = {k: v for k, v in ik.LAUNCHES.items() if v}
+        means[mode] = float(img.mean())
+        log(20, f"20a glossy plate {c.width}x{c.height}x{c.spp} depth "
+                f"{c.max_depth}, shininess {PLATE['shininess']}, emission_"
+                f"mode {mode}: image mean {means[mode]:.5f}, launches "
+                f"{launched}", t0)
+        check(not launched, f"20a plate: kernels launched {launched}")
+        check(bool(torch.isfinite(img).all()), "20a plate: not finite")
+        paths_against_cpu(f"20a glossy plate {mode}", scene, scene_cpu, c,
+                          0, phase=20)
+    check(means["always"] > means["nee"] and means["mis"] > 0.0,
+          f"20a plate: image means {means}")
+
+
+def phase20_glass(glass, glossy, glossy_cpu):
+    """20a: glass with glossy white walls through K3 (every launch held
+    bitwise, card against CPU); BDPT (launches from integrators/bdpt.py's
+    loops, every one held bitwise, card against CPU) and Whitted (45
+    launches, every lane against the plain intersector) on it."""
+    scene, cfg = glossy
+    label = (f"20a glossy glass {cfg.width}x{cfg.height}x{cfg.spp} depth "
+             f"{cfg.max_depth} (emission_mode {cfg.emission_mode})")
+    img, launched, _ = render_numbers(
+        label, lambda: lt.render(scene, cfg, seed=0), 20)
+    check(launched == {"intersect_dense": 2 * cfg.max_depth},
+          f"20a glossy glass: launches {launched}")
+    diffuse = lt.render(glass[0], cfg, seed=0)
+    log(20, f"20a glossy glass image mean {float(img.mean()):.5f}, the "
+            f"preset's diffuse walls {float(diffuse.mean()):.5f}")
+    check(not torch.equal(img, diffuse), "20a: the glossy walls changed "
+                                         "nothing")
+    t0 = time.perf_counter()
+    with Recorder("intersect_dense") as rec:
+        lt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+    n, ms, pairs = rec.summary()
+    log(20, f"20a glossy glass: {n} K3 launches, {ms:.4f} ms mean by CUDA "
+            f"events, admitted pairs per launch {pairs}", t0)
+    rec.hold_every("20a glossy glass")
+    paths_against_cpu("20a glossy glass", scene, glossy_cpu, cfg, 7,
+                      phase=20)
+
+    nq = sum(bdpt_queries(cfg.max_depth, "area"))
+    img, launched, _ = render_numbers(
+        f"20a glossy glass {cfg.width}x{cfg.height}x{cfg.spp} depth "
+        f"{cfg.max_depth} BDPT", lambda: bdpt_render(scene, cfg), 20)
+    check_bdpt_launches("20a BDPT", launched, {"intersect_dense": nq})
+    with Recorder("intersect_dense") as rec:
+        bdpt_render(scene, cfg)
+        torch.cuda.synchronize()
+    rec.hold_every("20a glossy glass BDPT")
+    bdpt_against_cpu("20a glossy glass BDPT", scene, glossy_cpu, cfg,
+                     phase=20)
+
+    cfg3 = dataclasses.replace(cfg, max_depth=3)
+    img, launched, _ = render_numbers(
+        f"20a glossy glass {cfg3.width}x{cfg3.height} Whitted depth 3",
+        lambda: whitted_render(scene, cfg3), 20)
+    check(launched == {"intersect_dense": 45},
+          f"20a Whitted: launches {launched}")
+    t0 = time.perf_counter()
+    with plain_intersector():
+        plain = whitted_crop(scene, cfg3, 0, cfg3.width * cfg3.height)
+    log(20, f"20a Whitted plain intersector, every lane", t0)
+    parity("20a glossy glass Whitted against the plain intersector", img,
+           plain, (PLAIN_PIXELS, PLAIN_WITHIN, PLAIN_MEAN), 20)
+
+
+def phase20_soft(soft):
+    """20a: the soft-shadow scene with a glossy sphere at 400x400x10,
+    depth 3, through the cull kernel and K4; lanes 72,000-87,999
+    re-traced through the plain intersector."""
+    scene = glossy_materials(soft, 0)
+    cfg = SOFT_SHADOW_CFG
+    label = (f"20a glossy soft shadow {cfg.width}x{cfg.height}x{cfg.spp} "
+             f"depth {cfg.max_depth}")
+    _, launched, _ = render_numbers(
+        label, lambda: lt.render(scene, cfg, seed=0), 20)
+    want = {"tile_cull": 2 * cfg.max_depth,
+            "intersect_gather": 2 * cfg.max_depth}
+    check(launched == want, f"20a glossy soft shadow: launches {launched}")
+    img, samples = pt.render_image(scene, cfg, seed=0, return_samples=True)
+    o, d, u = pt._camera_lanes(scene, cfg, 0)
+    t0 = time.perf_counter()
+    with plain_intersector():
+        rad_p, _ = pt.trace_paths(scene, cfg, o[SOFT_CROP], d[SOFT_CROP],
+                                  u[SOFT_CROP])
+    rad_k = samples.permute(2, 0, 1, 3).reshape(-1, 3)[SOFT_CROP]
+    close = torch.isclose(rad_k, rad_p, rtol=1e-3, atol=1e-6).all(dim=1)
+    frac = float(close.float().mean())
+    diffuse = lt.render(soft, cfg, seed=0)
+    log(20, f"20a glossy soft shadow: plain intersector on lanes "
+            f"{SOFT_CROP.start}-{SOFT_CROP.stop - 1}: {frac:.5f} within "
+            f"rtol 1e-3, bitwise {torch.equal(rad_k, rad_p)}; image mean "
+            f"{float(img.mean()):.5f} (diffuse sphere "
+            f"{float(diffuse.mean()):.5f}) [{smi()}]", t0)
+    check(frac >= PLAIN_PIXELS, f"20a glossy soft shadow: {frac} of lanes")
+    check(bool(torch.isfinite(img).all()) and not torch.equal(img, diffuse),
+          "20a glossy soft shadow: the image")
+
+
+def coplanar_ties(scene_cpu, rays, tri_a, tri_b):
+    """Lanes whose (N, depth) triangle records differ, and how many of them
+    differ first at a tie: the ray of that bounce (``rays``, the CPU's)
+    meets both triangles at the same distance (float64 Moller-Trumbore,
+    within 1e-6), as the glass's coplanar triangles of opposite facing
+    do, so an ulp of the ray decides between them."""
+    differ = (tri_a != tri_b).numpy()
+    lanes = np.nonzero(differ.any(axis=1))[0]
+    first = differ[lanes].argmax(axis=1)
+    a = tri_a.numpy()[lanes, first]
+    b = tri_b.numpy()[lanes, first]
+    o = np.stack([r[0].double().numpy() for r in rays], 1)[lanes, first]
+    d = np.stack([r[1].double().numpy() for r in rays], 1)[lanes, first]
+    verts = scene_cpu.mesh.vertices()
+
+    def mt(v):
+        e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+        p = np.cross(d, e2)
+        det = (e1 * p).sum(1)
+        s_ = o - v[:, 0]
+        q = np.cross(s_, e1)
+        return (e2 * q).sum(1) / det, (s_ * p).sum(1) / det, \
+            (d * q).sum(1) / det
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ta, ua, va = mt(verts[a])
+        tb, ub, vb = mt(verts[b])
+    tie = ((a >= 0) & (b >= 0)
+           & (np.minimum(ua, ub) >= -1e-6) & (np.minimum(va, vb) >= -1e-6)
+           & (np.maximum(ua + va, ub + vb) <= 1 + 1e-6)
+           & (np.abs(ta - tb) <= 1e-6 * np.maximum(1.0, np.abs(ta))))
+    return len(lanes), int(tie.sum())
+
+
+def phase20b(glass, glass_cpu):
+    """20b: render_with_detectors on glass through K3: its image bitwise
+    render_image's; one trace's record tallied on the card and on the
+    CPU (hits bitwise, energy within DETECTOR_RTOL); the card's record
+    against the CPU's from the same uniforms."""
+    scene, cfg = glass
+    t0 = time.perf_counter()
+    zero_counts()
+    img, energy, hits = pt.render_with_detectors(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ik.LAUNCHES.items() if v}
+    same = torch.equal(img, pt.render_image(scene, cfg, seed=0))
+    n_tri = scene.mesh.num_triangles
+    log(20, f"20b render_with_detectors glass {cfg.width}x{cfg.height}x"
+            f"{cfg.spp} depth {cfg.max_depth}: launches {launched}, image "
+            f"bitwise render_image's {same}; hits {int(hits.sum())} on "
+            f"{int((hits > 0).sum())} of {n_tri} triangles, energy "
+            f"{float(energy.sum()):.4f}", t0)
+    check(same, "20b: the detectors' image differs from render_image's")
+    check(launched == {"intersect_dense": 2 * cfg.max_depth},
+          f"20b: launches {launched}")
+    check(bool(((energy > 0) <= (hits > 0)).all()), "20b: energy, no hits")
+    o, d, u = pt._camera_lanes(glass_cpu, cfg, 0)
+    k = CROP_CPU
+    _, rec = pt.trace_paths(scene, cfg, o[:k].to(DEV), d[:k].to(DEV),
+                            u[:k].to(DEV))
+    # the CPU's trace bounce by bounce (trace_paths' loop), keeping the rays
+    state, recs, rays = pt.PathState.initial(o[:k], d[:k]), [], []
+    for b in range(cfg.max_depth):
+        rays.append((state.origin, state.direction))
+        state, r = pt._bounce(glass_cpu, cfg, state, u[:k, b], b)
+        recs.append(r)
+    rec_cpu = pt.TraceRecord(*(torch.stack(x, dim=1) for x in zip(*recs)))
+    e_card, h_card = pt.surface_detector_tally(rec, n_tri)
+    e_host, h_host = pt.surface_detector_tally(
+        pt.TraceRecord(*(x.cpu() for x in rec)), n_tri)
+    e_card, h_card = e_card.cpu(), h_card.cpu()
+    rel = float(((e_card - e_host).abs()
+                 / e_host.abs().clamp(min=1e-30)).max())
+    e_cpu, h_cpu = pt.surface_detector_tally(rec_cpu, n_tri)
+    same_tri = float((rec.tri.cpu() == rec_cpu.tri).double().mean())
+    n_apart, n_ties = coplanar_ties(glass_cpu, rays, rec.tri.cpu(),
+                                    rec_cpu.tri)
+    h_diff = int((h_card - h_cpu).abs().sum())
+    e_rel = float((e_card.double().sum() - e_cpu.double().sum()).abs()
+                  / e_cpu.double().sum())
+    log(20, f"20b lanes 0-{k}: the card's record tallied on the card and "
+            f"on the CPU: hits bitwise {torch.equal(h_card, h_host)}, "
+            f"energy largest relative difference {rel:.3g} (limit "
+            f"{DETECTOR_RTOL}); against the CPU's trace of the same "
+            f"uniforms: records on the same triangle {same_tri:.6f}, the "
+            f"first differing record of {n_ties} of the {n_apart} lanes "
+            f"apart a coplanar tie, hits bitwise "
+            f"{torch.equal(h_card, h_cpu)} ({h_diff} of {int(h_cpu.sum())} "
+            f"differ), total energy relative difference {e_rel:.3g}")
+    check(torch.equal(h_card, h_host), "20b: hits of one record differ")
+    check(rel <= DETECTOR_RTOL, f"20b: energy of one record off by {rel}")
+    check(same_tri >= PLAIN_PIXELS, f"20b: {same_tri} of records agree")
+    check(e_rel <= CPU_MEAN, f"20b: total energy off by {e_rel}")
+
+
+def driver_numbers(line):
+    out = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            out.append(float(x))
+
+    walk({k: v for k, v in line.items() if k != "example"})
+    return out
+
+
+def phase20c(tmp):
+    """20c: every examples_torch driver's main() on the card at the JAX
+    driver's sizes (photon_mcml at PHASE20_PHOTONS), into ``tmp``: its
+    JSON lines (printed by the driver), wall and launches by kernel."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent
+                           / "examples_torch"))
+    import _torch_common
+
+    walls = {}
+    for name in _torch_common.DRIVERS:
+        module = _torch_common.load(name)
+        zero_counts()
+        t0 = time.perf_counter()
+        if name == "photon_mcml":
+            lines = module.run(n_photons=PHASE20_PHOTONS, out_dir=tmp)
+        else:
+            lines = module.main(["--out-dir", tmp])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launched = {k: v for k, v in ik.LAUNCHES.items() if v}
+        cut = (f"; cut: {PHASE20_PHOTONS} photons a run (main(): "
+               f"{module.N})" if name == "photon_mcml" else "")
+        log(20, f"20c {name}: {len(lines)} JSON lines, wall "
+                f"{walls[name]:.2f} s, K3 launches "
+                f"{launched.get('intersect_dense', 0)}, K4 launches "
+                f"{launched.get('intersect_gather', 0)} (cull "
+                f"{launched.get('tile_cull', 0)}){cut} [{smi()}]")
+        check(set(launched) == DRIVER_KERNELS.get(name, set()),
+              f"20c {name}: launches {launched}")
+        for line in lines:
+            nums = driver_numbers(line)
+            check(nums and all(math.isfinite(v) for v in nums),
+                  f"20c {name}: {line}")
+        if name == "glossy_mis":
+            check(lines[0]["rmse_ratio"] > 1.0,
+                  f"20c glossy_mis: MIS no closer to the truth than NEE "
+                  f"{lines[0]['rmse_ratio']}")
+    pngs = sorted(os.listdir(tmp))
+    log(20, f"20c the drivers wrote {len(pngs)} PNGs; walls in all "
+            f"{sum(walls.values()):.2f} s")
+    return walls
+
+
+def phase20(glass, soft):
+    """20a-20c."""
+    t0 = time.perf_counter()
+    glass_cpu = glass_scene(device="cpu")[0]
+    glossy = (glossy_materials(glass[0], 0), glass[1])
+    glossy_cpu = glossy_materials(glass_cpu, 0)
+    phase20_plate()
+    phase20_glass(glass, glossy, glossy_cpu)
+    phase20_soft(soft)
+    phase20b(glass, glass_cpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase20c(tmp)
+    wall = time.perf_counter() - t0
+    log(20, f"phase 20 in all {wall:.2f} s")
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4601,6 +4938,7 @@ def main():
     wall17 = phase17(glass, soft)
     wall18 = phase18(glass, soft)
     phase19(glass, soft)
+    phase20(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,

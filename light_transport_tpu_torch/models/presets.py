@@ -181,6 +181,48 @@ def glass_scene(width=100, height=100, spp=4, max_depth=3, device="cuda"):
     return scene, cfg
 
 
+def glossy_plate_scene(width=96, height=96, spp=16, max_depth=3,
+                       shininess=80.0, half=3.0, power=60.0, device="cuda"):
+    """Veach's glossy-plate regime: a 6x6 modified-Phong plate through the
+    origin, tilted 45 degrees about x (normal (0, 1, 1)/sqrt 2), reflects
+    the camera's -z rays straight up into an overhead ``2 half`` square
+    light at y = 6, so every plate pixel is a highlight.  The light's
+    radiance is ``power / (4 half^2)``, so lights of other sizes emit the
+    same total power.  4 triangles (the dispatch's brute force)."""
+    from light_transport_tpu_torch.scene.geometry import (
+        TriangleMesh,
+        concat_meshes,
+        quad_triangles,
+    )
+    from light_transport_tpu_torch.scene.material import (
+        Color,
+        Material,
+        MaterialTable,
+    )
+    from light_transport_tpu_torch.scene.scene import Scene
+
+    glossy = Material(color=Color.of((0, 0, 0), (0.05, 0.05, 0.05),
+                                     (0.90, 0.90, 0.90)),
+                      shininess=shininess, is_diffuse=False, is_glossy=True)
+    source = Material(color=Color.of((1, 1, 1), (1, 1, 1), (1, 1, 1)),
+                      shininess=1, emission=power / (4.0 * half * half))
+    mats = MaterialTable.build([glossy, source], device=device)
+    s = 3.0 * 0.70710678
+    plate = TriangleMesh.build(
+        quad_triangles((-3.0, -s, s), (3.0, -s, s), (3.0, s, -s),
+                       (-3.0, s, -s)),
+        np.zeros(2, np.int32), device=device)
+    lights = TriangleMesh.build(
+        quad_triangles((-half, 6.0, -half), (half, 6.0, -half),
+                       (half, 6.0, half), (-half, 6.0, half)),
+        np.full(2, 1, np.int32), np.ones(2, bool), device=device)
+    scene = Scene.build(concat_meshes([plate, lights]), mats,
+                        camera=[0.0, 0.0, 9.0])
+    cfg = RenderConfig(width=width, height=height, spp=spp,
+                       max_depth=max_depth, f_distance=4.5)
+    return scene, cfg
+
+
 PRESETS: Dict[str, Callable] = {
     "demo": demo_homogeneous,
     "multilayer": multilayer_mismatch,

@@ -130,7 +130,8 @@ def test_stats_match_jax():
 
 
 def test_port_imports_without_jax():
-    """The port must import with jax unavailable (only its tests use JAX)."""
+    """The port and every example driver of ``examples_torch/`` must import
+    with jax unavailable (only its tests use JAX)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -176,6 +177,12 @@ def test_port_imports_without_jax():
         "import light_transport_tpu_torch.utils.png\n"
         "import light_transport_tpu_torch.cli\n"
         "import light_transport_tpu_torch.gui\n"
+        "sys.modules['_common'] = None\n"
+        "sys.modules['bench_mis_ab'] = None\n"
+        "sys.path.insert(0, 'examples_torch')\n"
+        "import _torch_common\n"
+        "drivers = [_torch_common.load(n) for n in _torch_common.DRIVERS]\n"
+        "assert len(drivers) == 12\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'flax'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
