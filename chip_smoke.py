@@ -184,6 +184,22 @@ script exits non-zero without the final result line):
      CPU's, coplanar ties counted (20b); every examples_torch driver's
      main() at the JAX drivers' sizes, photon_mcml at 1e5 photons a run
      (20c: JSON lines, walls, K3 and K4 launches)
+ 21. tail compaction (RenderConfig.compact_tail; scripts/smoke_phase21.py
+     runs it alone), after 20: each scene's lanes traced at full width and
+     by trace_paths_compact, every lane bitwise, the widths by bounce the
+     halving rule on the live counts, the live share per segment,
+     launches and CUDA-event ms by kernel and width; then render_image
+     and api.render with compact_tail=True, first and second walls, host
+     syncs by place, device busy under the profiler, images bitwise: the
+     fix1 Cornell box 300x300x50 d8 on the brute force (21a, the widths
+     also the rule on the TraceRecord.alive counts), glass 100x100x16 d8
+     through K3 (21b: every K3 launch at each width bitwise its plain
+     version, api.render against render_image_compact, the detectors
+     with and without the flag), the soft-shadow scene at depth 8 through
+     the cull kernel and K4 (21c: K4 by width, the crop's lanes live after
+     the first shrink bitwise the plain intersector); after 18's big
+     mesh, that scene at depth 8 through K5 (21d) and one compacted
+     render on the K5r wavefront route, bitwise
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -4541,12 +4557,26 @@ def phase19e(glass):
 
     t0 = time.perf_counter()
     (img, secs), ev_ms = with_events(lambda: profiling.timed(fn))
-    first, best = profiling.compile_and_steady(fn)
-    steady = min(with_events(fn)[1] for _ in range(3))
+    # events around each call compile_and_steady times: the render waits
+    # on the host, so other calls' times would spread as its walls do
+    events = []
+
+    def fn_events():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        events.append((a, b))
+        return out
+
+    first, best = profiling.compile_and_steady(fn_events)
+    torch.cuda.synchronize()
+    steady = min(a.elapsed_time(b) for a, b in events[1:])
     log(19, f"19e timed {secs * 1e3:.3f} ms, CUDA events around it "
             f"{ev_ms:.3f} ms; compile_and_steady first {first * 1e3:.3f} "
-            f"ms, best steady {best * 1e3:.3f} ms, CUDA events' best of 3 "
-            f"{steady:.3f} ms [{smi()}]")
+            f"ms, best steady {best * 1e3:.3f} ms, CUDA events' best of "
+            f"the same 3 calls {steady:.3f} ms [{smi()}]")
     check(img.is_cuda and bool(torch.isfinite(img).all()), "19e: the image")
     for label, host, dev in (("timed", secs * 1e3, ev_ms),
                              ("best steady", best * 1e3, steady)):
@@ -4895,6 +4925,356 @@ def phase20(glass, soft):
     return wall
 
 
+# --------------------------------------------------------------------------
+# phase 21: tail compaction (RenderConfig.compact_tail)
+# --------------------------------------------------------------------------
+
+# scripts/bench_compact_tail.py:17-36: the fix1 configuration
+FIX1 = dict(width=300, height=300, spp=50, max_depth=8)
+COMPACT_DEPTH = 8
+GLASS_COMPACT = (100, 100, 16, COMPACT_DEPTH)
+# trace_paths_compact's defaults (JAX's)
+COMPACT_SEGMENT, COMPACT_MIN_WIDTH = 2, 1 << 13
+# the kernel wrappers whose launches phase 21 times at each lane width:
+# (module, wrapper, its LAUNCHES key)
+WIDTH_WRAPPERS = ((ik, "intersect_dense_keys", "intersect_dense"),
+                  (ik, "tile_cull", "tile_cull"),
+                  (ik, "intersect_gather", "intersect_gather"),
+                  (tk, "treelet_walk", "treelet_walk"),
+                  (tk, "treelet_resume", "treelet_resume"))
+
+
+def halving_widths(counts, n0, depth, segment=COMPACT_SEGMENT,
+                   min_width=COMPACT_MIN_WIDTH):
+    """trace_paths_compact's lane width at every bounce, by its rule, from
+    the live count after each bounce (``counts[b]``, read where a segment
+    ends)."""
+    widths, width, b = [], n0, 0
+    while b < depth:
+        seg = min(segment, depth - b)
+        widths += [width] * seg
+        b += seg
+        if b >= depth or width <= min_width:
+            continue
+        new_w = width
+        while new_w > min_width and counts[b - 1] <= new_w // 2:
+            new_w //= 2
+        width = new_w
+    return widths
+
+
+class WidthLog:
+    """While installed, ``path_tracer._bounce`` notes each bounce's lane
+    width (with ``keep_alive``, also the alive mask it returns), and every
+    kernel wrapper of WIDTH_WRAPPERS is timed by CUDA events, its
+    launches (the wrapper's own count) filed under the width of the
+    bounce that made them.  A recorder installed inside it wraps the
+    timed wrappers, so its own work stays out of the times; calls that
+    reach them after the log is removed are not timed."""
+
+    def __init__(self, keep_alive=False):
+        self.keep_alive = keep_alive
+        self.widths, self.alive, self.launches = [], [], []
+        self.width = None
+        self.active = True
+
+    def __enter__(self):
+        self.saved = [(pt, "_bounce", pt._bounce)] + [
+            (m, attr, getattr(m, attr)) for m, attr, _ in WIDTH_WRAPPERS]
+        bounce = pt._bounce
+
+        def spy(scene, cfg, state, *args, **kw):
+            self.width = state.alive.shape[0]
+            self.widths.append(self.width)
+            out = bounce(scene, cfg, state, *args, **kw)
+            if self.keep_alive:
+                self.alive.append(out[0].alive)
+            return out
+
+        pt._bounce = spy
+        for m, attr, name in WIDTH_WRAPPERS:
+            setattr(m, attr, self._timed(m, name, getattr(m, attr)))
+        return self
+
+    def _timed(self, module, name, fn):
+        def call(*args, **kw):
+            if not self.active:
+                return fn(*args, **kw)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            before = module.LAUNCHES[name]
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            if module.LAUNCHES[name] > before:
+                self.launches.append((name, self.width, a, b))
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        self.active = False
+        for m, attr, fn in self.saved:
+            setattr(m, attr, fn)
+
+    def by_width(self):
+        """{width: {kernel: (launches, ms by events)}}, widths in order."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, w, a, b in self.launches:
+            n, ms = out.setdefault(w, {}).get(name, (0, 0.0))
+            out[w][name] = (n + 1, ms + a.elapsed_time(b))
+        return out
+
+
+def launched_now():
+    return {k: v for k, v in {**ik.LAUNCHES, **tk.LAUNCHES}.items() if v}
+
+
+def compact_pair(label, scene, cfg, seed=0, hold=None):
+    """Phase 21 on one scene: the full-width trace of the render's lanes
+    (its TraceRecord and, by WidthLog, the alive mask after each bounce),
+    then ``trace_paths_compact`` of the same lanes under WidthLog
+    (launches and CUDA-event ms by kernel and width; ``hold()``, if given,
+    is a recorder installed around it), every lane bitwise the full width
+    and the widths the halving rule on the live counts.  Then the user's
+    two renders, ``render_image`` and ``api.render`` with
+    ``compact_tail=True``: first calls, second calls in turns (compact,
+    full), host syncs by place on a third call and device busy time under
+    the profiler on a fourth, the images bitwise.  Returns the numbers."""
+    t_all = time.perf_counter()
+    n0 = cfg.width * cfg.height * cfg.spp
+    depth = cfg.max_depth
+    flagged = dataclasses.replace(cfg, compact_tail=True)
+    o, d, u = pt._camera_lanes(scene, cfg, seed)
+    zero_counts()
+    with WidthLog(keep_alive=True) as wl_full:
+        rad_full, rec = pt.trace_paths(scene, cfg, o, d, u)
+    full_launched = launched_now()
+    record_alive = rec.alive.sum(dim=0).tolist()
+    del rec
+    live_after = [int(a.sum()) for a in wl_full.alive]
+    zero_counts()
+    stats = {}
+    with WidthLog() as wl, contextlib.ExitStack() as stack:
+        recorder = stack.enter_context(hold()) if hold else None
+        rad_c = pt.trace_paths_compact(scene, cfg, o, d, u, stats=stats)
+    comp_launched = launched_now()
+    check(bvh_mod.PLAIN_WALKS == 0, f"21 {label}: the plain walk ran")
+    n_apart = int((rad_c != rad_full).any(dim=1).sum())
+    per_width = wl.by_width()
+    full_ms = {k: v for ks in wl_full.by_width().values()
+               for k, v in ks.items()}
+    widths = wl.widths
+    share = [round(a / w, 4) for a, w in zip(stats["alive"],
+                                              stats["widths"])]
+    log(21, f"{label} ({n0} lanes, depth {depth}): widths by bounce "
+            f"{widths}; live count read after each segment "
+            f"{stats['alive']} (share of the width {share}); live after "
+            f"each bounce at full width {live_after}, TraceRecord.alive "
+            f"counts {record_alive}; lanes apart from the full width "
+            f"{n_apart} of {n0}; launches full width {full_launched}, "
+            f"compact {comp_launched}; (launches, ms by CUDA events) at "
+            f"full width " + ", ".join(f"{k} {n} {ms:.3f}"
+                                       for k, (n, ms) in full_ms.items())
+            + "; compact by width: " + "; ".join(
+                f"{w}: " + ", ".join(f"{k} {n} {ms:.3f}"
+                                     for k, (n, ms) in ks.items())
+                for w, ks in per_width.items()))
+    check(n_apart == 0 and torch.equal(rad_c, rad_full),
+          f"21 {label}: {n_apart} lanes differ from the full width")
+    check(widths == halving_widths(live_after, n0, depth),
+          f"21 {label}: widths {widths} against the rule on {live_after}")
+    check(stats["widths"] == widths[::COMPACT_SEGMENT],
+          f"21 {label}: stats widths {stats['widths']}")
+    check(min(widths) < n0, f"21 {label}: the width never shrank")
+    del rad_c
+    fns = {"full": lambda: pt.render_image(scene, cfg, seed),
+           "compact": lambda: lt.render(scene, flagged, seed)}
+    walls, imgs = {}, {}
+    for k, name in enumerate(("full", "compact", "compact", "full")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fns[name]()
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t0)
+        imgs.setdefault(name, img)
+    check(torch.equal(imgs["compact"], imgs["full"]),
+          f"21 {label}: the compact image differs from the full width's")
+    syncs, where, busy = {}, {}, {}
+    for name, fn in fns.items():
+        where[name] = {}
+        syncs[name] = count_syncs(fn, where[name])
+        busy[name] = device_busy(fn)
+    log(21, f"{label}: walls (first, second call) full "
+            f"{walls['full'][0]:.4f}, {walls['full'][1]:.4f} s; compact "
+            f"{walls['compact'][0]:.4f}, {walls['compact'][1]:.4f} s "
+            f"(second calls compact/full "
+            f"{walls['compact'][1] / walls['full'][1]:.3f}); device busy "
+            f"under the profiler full {busy['full'][0]:.3f} ms "
+            f"({busy['full'][1]} launches), compact "
+            f"{busy['compact'][0]:.3f} ms ({busy['compact'][1]} launches); "
+            f"host syncs full {syncs['full']}, compact {syncs['compact']}; "
+            f"compact's by place " + ", ".join(
+                f"{k} x{v}" for k, v in sorted(where["compact"].items()))
+            + f"; images bitwise; image mean {float(imgs['full'].mean()):.5f}"
+            f" [{smi()}]", t_all)
+    check(bool(torch.isfinite(imgs["full"]).all()),
+          f"21 {label}: not finite")
+    return dict(o=o, d=d, u=u, rad=rad_full, widths=widths,
+                live=wl_full.alive, record_alive=record_alive,
+                full_launched=full_launched, comp_launched=comp_launched,
+                per_width=per_width, full_ms=full_ms, recorder=recorder,
+                img=imgs["full"],
+                walls=walls, busy=busy, syncs=syncs)
+
+
+def phase21a():
+    """21a: scripts/bench_compact_tail.py's fix1 configuration, the Cornell
+    box 300x300x50 at depth 8, rr_start 5, emission_mode "always": 4.5M
+    lanes on the brute force, no kernel; the widths the halving rule on the
+    full-width trace's own TraceRecord.alive counts."""
+    scene, cfg = cornell_box_scene(**FIX1, device=DEV)
+    cfg = dataclasses.replace(cfg, rr_start=5, emission_mode="always")
+    r = compact_pair(f"21a fix1 {cfg.width}x{cfg.height}x{cfg.spp} depth "
+                     f"{cfg.max_depth}", scene, cfg, seed=1)
+    n0 = cfg.width * cfg.height * cfg.spp
+    want = halving_widths(r["record_alive"], n0, cfg.max_depth)
+    check(r["widths"] == want, f"21a: widths {r['widths']} against the "
+                               f"rule on TraceRecord.alive {want}")
+    check(not r["full_launched"] and not r["comp_launched"],
+          f"21a: kernels launched {r['comp_launched']}")
+
+
+def phase21b(glass):
+    """21b: the glass preset at 100x100x16, depth 8, over K3: every K3
+    launch of the compacted trace held bitwise against its plain version
+    at its width; api.render with the flag against render_image_compact;
+    render_with_detectors with the flag against it without."""
+    scene, _ = glass
+    cfg = glass_scene(*GLASS_COMPACT, device=DEV)[1]
+    label = (f"21b glass {cfg.width}x{cfg.height}x{cfg.spp} depth "
+             f"{cfg.max_depth}")
+    r = compact_pair(label, scene, cfg, seed=0,
+                     hold=lambda: Recorder("intersect_dense"))
+    for launched in (r["full_launched"], r["comp_launched"]):
+        check(set(launched) == {"intersect_dense"}
+              and launched["intersect_dense"] == 2 * cfg.max_depth,
+              f"21b: launches {launched}")
+    r["recorder"].hold_every(f"21b compact {label}")
+    flagged = dataclasses.replace(cfg, compact_tail=True)
+    check(torch.equal(lt.render(scene, flagged, seed=0),
+                      pt.render_image_compact(scene, cfg, 0)),
+          "21b: api.render with compact_tail is not render_image_compact")
+    # the energy tally adds by float atomics in the card's order: held to
+    # DETECTOR_RTOL, beside a second run without the flag
+    (img, energy, hits), (img_f, energy_f, hits_f), (_, energy_r, _) = (
+        pt.render_with_detectors(scene, c, seed=0)
+        for c in (cfg, flagged, cfg))
+
+    def rel(e):
+        return float(((e - energy).abs()
+                      / energy.abs().clamp(min=1e-30)).max())
+
+    log(21, f"21b: every K3 launch of the compacted trace bitwise its plain "
+            f"version; api.render with the flag bitwise "
+            f"render_image_compact; render_with_detectors with the flag: "
+            f"image bitwise {torch.equal(img, img_f)}, hits bitwise "
+            f"{torch.equal(hits, hits_f)}, energy within rel "
+            f"{rel(energy_f):.3g} (a second run without it {rel(energy_r):.3g})")
+    check(torch.equal(img, img_f) and torch.equal(hits, hits_f),
+          "21b: render_with_detectors' image or hits changed with the flag")
+    check(rel(energy_f) <= DETECTOR_RTOL,
+          f"21b: detector energy apart by {rel(energy_f)} with the flag")
+
+
+def phase21c(soft):
+    """21c: the soft-shadow scene at 400x400x10, depth 8, over the cull
+    kernel and K4: K4's launches and ms at each width; the lanes of
+    400x400's rows 180-219 (lanes 72,000-87,999) still live after the
+    first shrink re-traced through the plain intersector, bitwise."""
+    cfg = dataclasses.replace(SOFT_SHADOW_CFG, max_depth=COMPACT_DEPTH)
+    r = compact_pair(f"21c soft shadow {cfg.width}x{cfg.height}x{cfg.spp} "
+                     f"depth {cfg.max_depth}", soft, cfg, seed=0)
+    for launched in (r["full_launched"], r["comp_launched"]):
+        check(set(launched) == {"tile_cull", "intersect_gather"}
+              and launched["tile_cull"] == launched["intersect_gather"]
+              == 2 * cfg.max_depth, f"21c: launches {launched}")
+    k4 = {w: ks.get("intersect_gather", (0, 0.0))
+          for w, ks in r["per_width"].items()}
+    comp_ms = sum(ms for _, ms in k4.values())
+    full_ms = r["full_ms"]["intersect_gather"][1]
+    log(21, f"21c: K4 by width (launches, ms by CUDA events, ms a launch): "
+            + "; ".join(f"{w}: {n}, {ms:.3f}, {ms / max(n, 1):.3f}"
+                        for w, (n, ms) in k4.items())
+            + f"; K4 in all {comp_ms:.3f} ms compacted, {full_ms:.3f} ms at "
+            f"full width ({comp_ms / full_ms:.3f})")
+    widths = r["widths"]
+    first = next(b for b, w in enumerate(widths) if w < widths[0])
+    crop = torch.zeros_like(r["live"][0])
+    crop[SOFT_CROP] = True
+    lanes = torch.nonzero(crop & r["live"][first - 1]).squeeze(1)
+    t0 = time.perf_counter()
+    with plain_intersector():
+        rad_p, _ = pt.trace_paths(soft, cfg, r["o"][lanes], r["d"][lanes],
+                                  r["u"][lanes])
+    n_apart = int((rad_p != r["rad"][lanes]).any(dim=1).sum())
+    log(21, f"21c: {lanes.shape[0]} lanes of {SOFT_CROP.start}-"
+            f"{SOFT_CROP.stop - 1} live after bounce {first - 1} (the first "
+            f"shrink, to {widths[first]}) re-traced through the plain "
+            f"intersector: {n_apart} apart from the compacted render", t0)
+    check(lanes.shape[0] > 0 and n_apart == 0,
+          f"21c: {n_apart} of {lanes.shape[0]} crop lanes differ")
+
+
+def phase21(glass, soft):
+    """21a-21c (21d after the big mesh)."""
+    t0 = time.perf_counter()
+    phase21a()
+    phase21b(glass)
+    phase21c(soft)
+    wall = time.perf_counter() - t0
+    log(21, f"21a-21c in {wall:.2f} s")
+    return wall
+
+
+def phase21_big(scene, cfg):
+    """21d: the big mesh at 256x256x2, depth 8, over K5 (bounce 0 the
+    coherent batch), compact bitwise full width; then one compacted
+    render on the K5r wavefront route beside it, bitwise."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, max_depth=COMPACT_DEPTH)
+    label = (f"21d big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
+             f"{cfg.max_depth}")
+    r = compact_pair(label, scene, cfg, seed=0)
+    for launched in (r["full_launched"], r["comp_launched"]):
+        check(set(launched) == {"treelet_walk"},
+              f"21d: launches {launched}")
+    flagged = dataclasses.replace(cfg, compact_tail=True)
+    t1 = time.perf_counter()
+    with treelet_route("wavefront"):
+        zero_counts()
+        img = lt.render(scene, flagged, seed=0)
+        torch.cuda.synchronize()
+        launched = launched_now()
+        check_route("wavefront", launched)
+        t2 = time.perf_counter()
+        lt.render(scene, flagged, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        syncs = count_syncs(lambda: lt.render(scene, flagged, seed=0))
+        busy = device_busy(lambda: lt.render(scene, flagged, seed=0))
+    log(21, f"21d wavefront route, compacted: launches {launched}, second "
+            f"call {wall:.4f} s, host syncs {syncs}, device busy "
+            f"{busy[0]:.3f} ms ({busy[1]} launches); image bitwise the "
+            f"single route's full width {torch.equal(img, r['img'])} "
+            f"[{smi()}]", t1)
+    check(torch.equal(img, r["img"]),
+          "21d: the wavefront route's compacted image differs")
+    wall = time.perf_counter() - t0
+    log(21, f"21d in {wall:.2f} s")
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4939,6 +5319,7 @@ def main():
     wall18 = phase18(glass, soft)
     phase19(glass, soft)
     phase20(glass, soft)
+    wall21 = phase21(glass, soft)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,
@@ -4996,6 +5377,8 @@ def main():
     log(17, f"phase 17 in all {wall17:.2f} s")
     wall18 += phase18_big(scene, cfg)
     log(18, f"phase 18 in all {wall18:.2f} s")
+    wall21 += phase21_big(scene, cfg)
+    log(21, f"phase 21 in all {wall21:.2f} s")
     for rec in recs:
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(

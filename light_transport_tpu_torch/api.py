@@ -24,7 +24,8 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
     """Render a camera image ``(H, W, 3)`` on the scene's device.
     ``integrator``: ``"path"``, the NEE path tracer
     (``cfg.fresnel_mode="split"`` renders through the both-branch Fresnel
-    tracer), ``"adaptive"``, the path tracer with the budget spent over
+    tracer, else ``cfg.compact_tail`` through the tail-compacting one),
+    ``"adaptive"``, the path tracer with the budget spent over
     variance-driven rounds, ``"whitted"``, the Whitted ray tracer (one ray
     a pixel), or ``"bdpt"``, bidirectional path tracing with MIS (area,
     point and mixed light families, light tracing on).  The Sobol'
@@ -76,7 +77,10 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
         return render_bdpt(scene, cfg, seed, ray_chunk=ray_chunk)
     from light_transport_tpu_torch.integrators import path_tracer
 
-    render_one = (path_tracer.render_image_split
-                  if cfg.fresnel_mode == "split"
-                  else path_tracer.render_image)
+    if cfg.fresnel_mode == "split":
+        render_one = path_tracer.render_image_split
+    elif cfg.compact_tail:
+        render_one = path_tracer.render_image_compact
+    else:
+        render_one = path_tracer.render_image
     return render_one(scene, cfg, seed, ray_chunk=ray_chunk)

@@ -13,8 +13,9 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Camera-render settings; the screen bounds derive from the aspect
-    ratio.  The port renders every value but ``compact_tail=True``, which
-    raises at render time."""
+    ratio.  ``compact_tail=True`` sends ``api.render``'s path tracer
+    through ``path_tracer.render_image_compact`` (the same image); every
+    other entry point ignores it, as JAX's do."""
 
     width: int = 150
     height: int = 150

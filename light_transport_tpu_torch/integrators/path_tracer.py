@@ -26,7 +26,10 @@ Point lights (``Scene.point_lights``) add a deterministic direct term at
 each NEE vertex, and analytic spheres and planes shade through
 ``scene.analytic.surface_attrs``.
 
-Not ported yet (ROADMAP): tail compaction.
+``RenderConfig.compact_tail`` renders through :func:`trace_paths_compact`,
+which squeezes the live lanes to the front and halves the lane width
+between bounce segments; every other entry point ignores the flag, as
+JAX's do.
 """
 
 from __future__ import annotations
@@ -435,10 +438,6 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
 
 
 def _check_config(cfg: RenderConfig):
-    if cfg.compact_tail:
-        raise NotImplementedError(
-            "compact_tail=True is not ported yet (ROADMAP); the port renders "
-            "compact_tail=False")
     if cfg.shadow_mode not in ("opaque", "transmittance"):
         raise ValueError(f"unknown shadow_mode {cfg.shadow_mode!r}")
     if cfg.sampler not in ("uniform", "sobol"):
@@ -620,6 +619,96 @@ def render_with_detectors(scene, cfg: RenderConfig, seed: int = 0,
                                    ray_chunk=ray_chunk)
     energy, hits = surface_detector_tally(record, scene.mesh.num_triangles)
     return _to_image(radiance, cfg)[0], energy, hits
+
+
+# --------------------------------------------------------------------------
+# compact_tail: the lane width halves as the paths die
+# --------------------------------------------------------------------------
+
+def _live_first(alive: torch.Tensor, n_alive: int) -> torch.Tensor:
+    """The stable partition of the lanes: the live ones in lane order, then
+    the dead ones in lane order (JAX's ``argsort(~alive, stable=True)``).
+    ``n_alive`` is ``alive``'s count, already on the host, so the
+    partition reads nothing back."""
+    pos = torch.where(alive, torch.cumsum(alive, 0) - 1,
+                      torch.cumsum(~alive, 0) - 1 + n_alive)
+    order = torch.empty_like(pos)
+    return order.scatter_(0, pos, torch.arange(pos.shape[0],
+                                               device=pos.device))
+
+
+def trace_paths_compact(scene, cfg: RenderConfig, origins: torch.Tensor,
+                        directions: torch.Tensor, uniforms: torch.Tensor,
+                        ray_chunk: Optional[int] = None, segment: int = 2,
+                        min_width: int = 1 << 13,
+                        stats: Optional[dict] = None) -> torch.Tensor:
+    """:func:`trace_paths` with tail compaction: ``radiance (N, 3)``, no
+    TraceRecord.
+
+    The lanes advance ``segment`` bounces at a time.  After a segment,
+    unless the depth is reached or the width is at most ``min_width``, the
+    host reads the live count once; while it is at most half the width
+    (and the width above ``min_width``) the width halves.  On a shrink
+    every lane's radiance is written to its own slot (a dead lane's is
+    final), the live lanes go to the front in lane order, and the path
+    state, the uniforms of the bounces still to come and the lane ids are
+    gathered to the new width.  The radiance goes back to lane order at
+    the end.
+
+    A lane's radiance is bitwise :func:`trace_paths`'s: the bounce is
+    elementwise over lanes and the dispatch answers each ray alone.  The
+    host syncs are the live counts (one a segment) and the dispatch's own.
+    ``stats``, if given, receives ``widths`` (each segment's lane width)
+    and ``alive`` (each live count read)."""
+    _check_config(cfg)
+    n0 = origins.shape[0]
+    state = PathState.initial(origins, directions)
+    out = torch.zeros((n0, 3), dtype=origins.dtype, device=origins.device)
+    lane_ids = torch.arange(n0, device=origins.device)
+    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
+    widths, counts = [], []
+    u0 = 0  # the bounce of uniforms[:, 0]
+    b = 0
+    while b < cfg.max_depth:
+        width = state.alive.shape[0]
+        widths.append(width)
+        for k in range(b, min(b + segment, cfg.max_depth)):
+            state, _ = _bounce(scene, cfg, state, uniforms[:, k - u0], k,
+                               ray_chunk, coherent=big and k == 0)
+        b = min(b + segment, cfg.max_depth)
+        if b >= cfg.max_depth or width <= min_width:
+            continue
+        n_alive = int(state.alive.sum())  # the segment's one readback
+        counts.append(n_alive)
+        new_w = width
+        while new_w > min_width and n_alive <= new_w // 2:
+            new_w //= 2
+        if new_w < width:
+            out.index_copy_(0, lane_ids, state.radiance)
+            order = _live_first(state.alive, n_alive)[:new_w]
+            state = PathState(*(f[order] for f in state))
+            uniforms = uniforms[order, b - u0:]
+            u0 = b
+            lane_ids = lane_ids[order]
+    if stats is not None:
+        stats["widths"] = widths
+        stats["alive"] = counts
+    return out.index_copy_(0, lane_ids, state.radiance)
+
+
+def render_image_compact(scene, cfg: RenderConfig, seed: int = 0,
+                         ray_chunk: Optional[int] = None,
+                         return_samples: bool = False,
+                         sample_offset: int = 0):
+    """:func:`render_image` through :func:`trace_paths_compact` (the same
+    lanes and uniforms, the same image bitwise)."""
+    _check_config(cfg)
+    origins, directions, uniforms = _camera_lanes(scene, cfg, seed,
+                                                  sample_offset)
+    radiance = trace_paths_compact(scene, cfg, origins, directions, uniforms,
+                                   ray_chunk=ray_chunk)
+    image, samples = _to_image(radiance, cfg)
+    return (image, samples) if return_samples else image
 
 
 # --------------------------------------------------------------------------

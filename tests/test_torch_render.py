@@ -296,18 +296,15 @@ def test_render_entry_points_on_the_cpu():
     dict(fresnel_mode="split"), dict(sampler="sobol"), dict(aperture=0.1),
     dict(shadow_mode="transmittance"), dict(compact_tail=True)])
 def test_unported_options_raise(change):
-    """``compact_tail``, the one option the port lacks, raises; the others,
-    ported since, render through ``api.render`` as the module's function
-    renders them (``fresnel_mode="split"`` through the split tracer)."""
+    """Every option, all ported since, renders through ``api.render`` as
+    the module's function renders it (``fresnel_mode="split"`` through the
+    split tracer, ``compact_tail`` through the tail-compacting one)."""
     scene, cfg = presets.lts_scene(width=4, height=4, spp=1, max_depth=1,
                                    device="cpu")
     cfg = dataclasses.replace(cfg, **change)
-    if change == dict(compact_tail=True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.render(scene, cfg)
-        return
-    one = (pt.render_image_split if change == dict(fresnel_mode="split")
-           else pt.render_image)
+    one = {"fresnel_mode": pt.render_image_split,
+           "compact_tail": pt.render_image_compact}.get(
+               next(iter(change)), pt.render_image)
     img = api.render(scene, cfg, seed=3)
     assert torch.equal(img, one(scene, cfg, 3))
     assert img.shape == (4, 4, 3) and torch.isfinite(img).all()
