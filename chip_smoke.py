@@ -94,8 +94,9 @@ script exits non-zero without the final result line):
      4 and resumed, bitwise the unbroken run; the 18 hg_sweep
      configurations through simulate_kernel at 1e5 photons (exact
      launches, energy within 1e-4, the albedo-0.9 g = 0 cell against van
-     de Hulst's 0.41550, the six g = 0 cells against the superstep engine
-     within their combined 3 sigma); a superstep of the superstep engine
+     de Hulst's 0.41550, the g = 0 cells against the superstep engine
+     within their combined 3 sigma, but for mu_a 0.1, mu_s 90, whose
+     drain tail there takes minutes); a superstep of the superstep engine
      at the sweep's lanes (host time, device time, launches); the phase's
      wall time
  15. the sharded runs and the split Fresnel tracer (parallel/mesh.py,
@@ -200,6 +201,19 @@ script exits non-zero without the final result line):
      the first shrink bitwise the plain intersector); after 18's big
      mesh, that scene at depth 8 through K5 (21d) and one compacted
      render on the K5r wavefront route, bitwise
+ 22. the split tracer's stack_size and max_iters and the Whitted queue's
+     weight_cutoff (scripts/smoke_phase22.py runs it alone), after 21c:
+     glass 100x100x16 at depth 8 through trace_paths_split at stack_size
+     1, 2 and the default (22a: iterations, K3 launches, the wall; a
+     second run bitwise the first with every K3 launch held bitwise
+     against the plain version; the card against the CPU on 20,000 lanes;
+     the lane mean against trace_paths' from the same uniforms; stack
+     size 1 apart from the default, so the full-stack fallback ran), at
+     stack_size 2 cut at max_iters 3 (22b, card against CPU), and the
+     Whitted queue on glass 100x100 at depth 4 at the default cutoff and
+     at 1e-5 against the unrolled tree (22c: supersteps, K3 launches
+     held bitwise, the tight cutoff within tests/test_whitted.py's
+     limits)
 
 The line before the last is the card's name and power limit; the last
 line is {"ok": true, "device": {...}}.
@@ -866,13 +880,13 @@ def launch_counted(name, fn, args):
     return out
 
 
-def compare_launch(label, args, got, want, exact=False):
+def compare_launch(label, args, got, want, exact=False, quiet=False):
     """One launch's (best_t, best_tri) from the kernel against its plain
     version on the same operands, to phase 8's limits, or with ``exact``
     bitwise (nearest hit: t and triangle of every ray; any hit: the
     hit mask); returns the largest |t| difference where both hit (0 for
     an any-hit launch, whose t and triangle are whichever hit the kernel
-    found first)."""
+    found first); ``quiet`` logs nothing."""
     any_hit = bool(args[-1])
     (tk, ck), (tp, cp) = as_hits(got), as_hits(want)
     vk, vp = ck >= 0, cp >= 0
@@ -885,10 +899,11 @@ def compare_launch(label, args, got, want, exact=False):
     rel = float((dt / tp[both].abs()).max()) if dt.numel() else 0.0
     same = float((ck[both] == cp[both]).float().mean()) if dt.numel() else 1.0
     err = float(dt.max()) if dt.numel() and not any_hit else 0.0
-    log(10, f"{label}: {n} rays, hit {float(vp.float().mean()):.4f}; "
-            f"mismatches {n_bad}" + ("" if any_hit else
-            f", max |dt| {err:.3e} (rel {rel:.3e}), same triangle "
-            f"{same:.6f}"))
+    if not quiet:
+        log(10, f"{label}: {n} rays, hit {float(vp.float().mean()):.4f}; "
+                f"mismatches {n_bad}" + ("" if any_hit else
+                f", max |dt| {err:.3e} (rel {rel:.3e}), same triangle "
+                f"{same:.6f}"))
     check(n_bad <= 1e-3 * n, f"{label}: {n_bad} hit mismatches")
     if not any_hit:
         check(rel <= 1e-5, f"{label}: t differs by rel {rel}")
@@ -945,15 +960,18 @@ class Recorder:
         return [(round(float(c.float().mean()), 2), int(c.max()))
                 for c in cnts]
 
-    def hold_every(self, label):
+    def hold_every(self, label, quiet=False):
         """Every recorded launch again through the kernel and through its
-        plain version on the same operands, bitwise."""
+        plain version on the same operands, bitwise (``quiet``: without a
+        log line a launch).  Returns the number of kernel launches held
+        (calls with rays)."""
         for k, (pairs, args) in enumerate(self.launched):
             mode = "any-hit" if args[-1] else "nearest"
             compare_launch(f"{label}, {self.name} launch {k} ({mode}, "
                            f"{int(pairs)} pairs)", args,
                            launch_counted(self.name, self.wrapped, args),
-                           self.plain(*args[:-1]), exact=True)
+                           self.plain(*args[:-1]), exact=True, quiet=quiet)
+        return sum(args[0].shape[0] > 0 for _, args in self.launched)
 
     def heaviest(self, any_hit):
         """The operands of the launch of that mode that admitted the most
@@ -2516,6 +2534,11 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
 KILL_BLOCKS = 64
 HG_N = 100_000
 VAN_DE_HULST_RD = 0.41550
+# the g = 0 cell (mu_a, mu_s) of albedo 0.9989 that the superstep engine
+# does not run: its drain tail took 123.15 s of phase 14 at ~10 ms a
+# superstep (NVIDIA H100 80GB HBM3, 700.00 W), for a check the other five
+# g = 0 cells make in 1.2-16.1 s each
+SUPERSTEP_SKIP = (0.1, 90.0)
 
 
 @contextlib.contextmanager
@@ -2714,8 +2737,8 @@ def phase14_resumable(tmp):
 def phase14_hg_sweep():
     """Each of the 18 hg_sweep configurations through ``simulate_kernel``
     at 1e5 photons: exact launches, energy closed; the albedo-0.9 g = 0
-    cell against van de Hulst; the g = 0 cells against the superstep
-    engine at the same count."""
+    cell against van de Hulst; the g = 0 cells but SUPERSTEP_SKIP against
+    the superstep engine at the same count."""
     t0 = time.perf_counter()
     rows = []
     for i, (label, m, cfg) in enumerate(hg_sweep(device=DEV)):
@@ -2728,7 +2751,13 @@ def phase14_hg_sweep():
         check(t.n_launched == HG_N, f"{label}: launched {t.n_launched}")
         check(abs(t.energy_total() - 1.0) < 1e-4,
               f"{label}: energy {t.energy_total()}")
-        if float(m.g[0]) == 0.0:
+        skip = all(math.isclose(float(x[0]), v, rel_tol=1e-6)
+                   for x, v in zip((m.mu_a, m.mu_s), SUPERSTEP_SKIP))
+        if float(m.g[0]) == 0.0 and skip:
+            row += ("; superstep engine not run: its drain tail took "
+                    "123.15 s (~10 ms a superstep, NVIDIA H100 80GB HBM3, "
+                    "700.00 W)")
+        elif float(m.g[0]) == 0.0:
             t1 = time.perf_counter()
             s = simulate_photons(m, cfg, 200 + i, lanes=1 << 17, device=DEV)
             rs = s.total_reflectance()
@@ -5275,6 +5304,169 @@ def phase21_big(scene, cfg):
     return wall
 
 
+# --------------------------------------------------------------------------
+# phase 22: the split tracer's stack and bound, the Whitted queue's cutoff
+# --------------------------------------------------------------------------
+
+# phase 21b's glass: 160,000 lanes at depth 8, where a lane's stack of 1 or
+# 2 slots fills (along one branch a lane pushes up to depth - 1 times)
+SPLIT_DEEP = (100, 100, 16, 8)
+SPLIT_STACKS = (1, 2, None)  # None: the default, min(depth, 6)
+SPLIT_CUT = dict(stack_size=2, max_iters=3)
+QUEUE_DEPTH = 4
+QUEUE_CUTOFFS = (tw.WEIGHT_CUTOFF, 1e-5)
+# tests/test_whitted.py:166-169: the queue at the tight cutoff against the
+# unrolled tree, the 95th percentile and the largest absolute difference
+TIGHT_P95, TIGHT_MAX = 2e-3, 5e-2
+
+
+def split_run(scene, cfg, lanes, **kw):
+    """``trace_paths_split`` of ``lanes`` (origins, directions, uniforms
+    on the card), K3's count set to 0 just before it: (radiance,
+    iterations, K3 launches, wall by the host clock)."""
+    ik.LAUNCHES["intersect_dense"] = 0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rad = pt.trace_paths_split(scene, cfg, *lanes, stats=stats, **kw)
+    torch.cuda.synchronize()
+    return (rad, stats["iterations"], ik.LAUNCHES["intersect_dense"],
+            time.perf_counter() - t0)
+
+
+def split_against_cpu(label, rad, scene_cpu, cfg, cpu_lanes, **kw):
+    """The first CROP_CPU lanes traced again on the CPU (plain versions)
+    from the same uniforms, held to 15e's limits: >= 0.99 of lanes within
+    rtol 1e-3, and the image of those lanes (CROP_CPU / pixels samples a
+    pixel) within a mean absolute difference of 2e-3."""
+    k = CROP_CPU
+    t0 = time.perf_counter()
+    rad_cpu = pt.trace_paths_split(scene_cpu, cfg,
+                                   *(x[:k] for x in cpu_lanes), **kw)
+    cpu_s = time.perf_counter() - t0
+    got = rad[:k].cpu()
+    frac = float(torch.isclose(got, rad_cpu, rtol=1e-3,
+                               atol=1e-6).all(dim=1).float().mean())
+    part = dataclasses.replace(cfg, spp=k // (cfg.width * cfg.height))
+    img_err = float((pt._to_image(got, part)[0]
+                     - pt._to_image(rad_cpu, part)[0]).abs().mean())
+    log(22, f"{label}: card against CPU on lanes 0-{k - 1}: {frac:.5f} of "
+            f"lanes within rtol 1e-3, mean abs image diff {img_err:.3g} "
+            f"(CPU {cpu_s:.2f} s)")
+    check(frac >= 0.99, f"{label}: {frac} of lanes agree with the CPU")
+    check(img_err < 2e-3, f"{label}: mean abs image diff {img_err}")
+
+
+def phase22_split(glass):
+    """22a: the split tracer on glass 100x100x16 at depth 8 at stack_size
+    1, 2 and the default, from uniforms drawn once on the CPU: iterations,
+    K3 launches and the wall of a run; a second run under the recorder,
+    bitwise the first, every K3 launch of it held bitwise against the
+    plain version; the card against the CPU; the lane mean against
+    trace_paths' from the same uniforms within 4 standard errors + 1e-3
+    (tests/test_path_tracer.py:259-273); stack_size 1 apart from the
+    default on some lanes (its fallback ran).  22b: stack_size 2 cut at
+    max_iters 3, card against CPU, each lane at most the uncut run's."""
+    scene = glass[0]
+    cfg = glass_scene(*SPLIT_DEEP, device=DEV)[1]
+    scene_cpu = glass_scene(device="cpu")[0]
+    cpu_lanes = pt._camera_lanes(scene_cpu, cfg, 22)
+    lanes = tuple(x.to(DEV) for x in cpu_lanes)
+    st = pt.trace_paths(scene, cfg, *lanes)[0].double().mean(dim=1)
+    se = float(st.std()) / math.sqrt(st.numel())
+    size = f"{cfg.width}x{cfg.height}x{cfg.spp} depth {cfg.max_depth}"
+    out = {}
+    for stack in SPLIT_STACKS:
+        S = stack if stack is not None else min(cfg.max_depth, 6)
+        label = f"22a glass {size}, stack_size {stack} (S = {S})"
+        rad, iters, k3, wall = split_run(scene, cfg, lanes, stack_size=stack)
+        with Recorder("intersect_dense") as rec:
+            again = pt.trace_paths_split(scene, cfg, *lanes, stack_size=stack)
+        held = rec.hold_every(label, quiet=True)
+        mean = float(rad.double().mean())
+        log(22, f"{label}: {iters} iterations, K3 launches {k3}, wall "
+                f"{wall:.3f} s; a second run bitwise the first "
+                f"{torch.equal(again, rad)}, its {held} K3 launches each "
+                f"bitwise the plain version; lane mean {mean:.5f}, "
+                f"trace_paths' {float(st.mean()):.5f} (limit 4 se + 1e-3 = "
+                f"{4 * se + 1e-3:.5f}) [{smi()}]")
+        check(0 < k3 <= 2 * iters, f"{label}: {k3} K3 launches")
+        check(held == k3, f"{label}: the recorder saw {held} of {k3}")
+        check(torch.equal(again, rad), f"{label}: a second run differs")
+        check(bool(torch.isfinite(rad).all()), f"{label}: not finite")
+        check(abs(mean - float(st.mean())) < 4 * se + 1e-3,
+              f"{label}: mean {mean} against {float(st.mean())} +- {se}")
+        split_against_cpu(label, rad, scene_cpu, cfg, cpu_lanes,
+                          stack_size=stack)
+        out[stack] = rad
+    apart = int(((out[1] - out[None]).abs().amax(dim=1) > 1e-6).sum())
+    log(22, f"22a: stack_size 1 apart from the default on {apart} of "
+            f"{st.numel()} lanes (by more than 1e-6)")
+    check(apart > 0, "22a: stack_size 1 gave the default's radiance")
+    label = f"22b glass {size}, stack_size 2, max_iters 3"
+    rad, iters, k3, wall = split_run(scene, cfg, lanes, **SPLIT_CUT)
+    below = bool((rad <= out[2]).all())
+    log(22, f"{label}: {iters} iterations, K3 launches {k3}, wall "
+            f"{wall:.3f} s, lane mean {float(rad.double().mean()):.5f}; "
+            f"every lane at most the uncut run's {below} [{smi()}]")
+    check(iters == 3 and 0 < k3 <= 6, f"{label}: {iters} iterations, {k3}")
+    check(below, f"{label}: a lane gathered more than the uncut run")
+    split_against_cpu(label, rad, scene_cpu, cfg, cpu_lanes, **SPLIT_CUT)
+
+
+def phase22_queue(glass):
+    """22c: the Whitted queue on glass 100x100 at depth 4 at the default
+    cutoff and at 1e-5 against the unrolled tree from the same primary
+    rays: supersteps, K3 launches, the 95th percentile and the largest
+    absolute difference (at 1e-5 within tests/test_whitted.py's limits);
+    every K3 launch of the tree and of both queues held bitwise against
+    the plain version."""
+    scene, cfg = glass
+    cfg = dataclasses.replace(cfg, max_depth=QUEUE_DEPTH)
+    o, d = tw._primary_rays(scene, cfg)
+    label = f"22c glass {cfg.width}x{cfg.height} Whitted depth {QUEUE_DEPTH}"
+    ik.LAUNCHES["intersect_dense"] = 0
+    with Recorder("intersect_dense") as rec:
+        tree = tw.trace_whitted(scene, o, d, QUEUE_DEPTH)
+    k3 = ik.LAUNCHES["intersect_dense"]
+    held = rec.hold_every(f"{label} tree", quiet=True)
+    log(22, f"{label}, the unrolled tree: K3 launches {k3}, each bitwise "
+            f"the plain version ({held} held)")
+    check(k3 > 0 and held == k3, f"{label}: tree {k3} K3, {held} held")
+    steps = {}
+    for cut in QUEUE_CUTOFFS:
+        ik.LAUNCHES["intersect_dense"] = 0
+        stats = {}
+        with Recorder("intersect_dense") as rec:
+            queue = tw.trace_whitted_queue(scene, o, d, QUEUE_DEPTH,
+                                           weight_cutoff=cut, stats=stats)
+        k3 = ik.LAUNCHES["intersect_dense"]
+        held = rec.hold_every(f"{label} queue {cut}", quiet=True)
+        err = (queue - tree).abs().flatten()
+        p95, top = float(torch.quantile(err, 0.95)), float(err.max())
+        steps[cut] = stats["supersteps"]
+        log(22, f"{label}, the queue at weight_cutoff {cut}: "
+                f"{steps[cut]} supersteps, K3 launches {k3}, each bitwise "
+                f"the plain version ({held} held); against the tree: 95th "
+                f"percentile {p95:.3g}, max {top:.3g} [{smi()}]")
+        check(k3 > 0 and held == k3, f"{label} {cut}: {k3} K3, {held} held")
+        if cut < tw.WEIGHT_CUTOFF:
+            check(p95 < TIGHT_P95, f"{label} {cut}: 95th percentile {p95}")
+            check(top < TIGHT_MAX, f"{label} {cut}: max {top}")
+    check(steps[1e-5] >= steps[tw.WEIGHT_CUTOFF],
+          f"{label}: supersteps {steps}")
+
+
+def phase22(glass):
+    """22a-22c; returns the phase's wall time."""
+    t0 = time.perf_counter()
+    phase22_split(glass)
+    phase22_queue(glass)
+    wall = time.perf_counter() - t0
+    log(22, f"phase 22 in all {wall:.2f} s")
+    return wall
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5320,6 +5512,7 @@ def main():
     phase19(glass, soft)
     phase20(glass, soft)
     wall21 = phase21(glass, soft)
+    phase22(glass)
     entries = [kernel_entry(
         "photon_block", "light_transport_tpu_torch/csrc/photon_kernel.cu",
         "light_transport_tpu/ops/pallas/photon_kernel.py:204", launches,

@@ -144,12 +144,15 @@ def pinv_rtol(c: int, dtype=torch.float32) -> float:
     return 10.0 * c * torch.finfo(dtype).eps
 
 
-def cv_correct(samples: torch.Tensor, control: torch.Tensor):
+def cv_correct(samples: torch.Tensor, control: torch.Tensor,
+               eps: float = 1e-8):
     """Per-pixel zero-variance CV solve, batched over pixels.
 
     ``samples`` (P, S, 3), ``control`` (P, S, C).  Returns ``(corrected
     (P, S, 3), singular (P,))``: a pixel whose corrected samples are not
-    all finite keeps its uncorrected samples and is flagged."""
+    all finite keeps its uncorrected samples and is flagged.  ``eps`` is
+    accepted and not read, as in JAX (the pseudo-inverse's cutoff is
+    :func:`pinv_rtol`)."""
     sc = torch.cat([samples, control], dim=2)  # (P, S, 3+C)
     x = sc - sc.mean(dim=1, keepdim=True)
     cov = x.transpose(1, 2) @ x  # the 1/S scale cancels inside alpha

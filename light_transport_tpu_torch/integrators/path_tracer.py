@@ -718,11 +718,13 @@ def render_image_compact(scene, cfg: RenderConfig, seed: int = 0,
 def trace_paths_split(scene, cfg: RenderConfig, origins: torch.Tensor,
                       directions: torch.Tensor, uniforms: torch.Tensor,
                       ray_chunk: Optional[int] = None,
+                      stack_size: Optional[int] = None,
+                      max_iters: Optional[int] = None,
                       stats: Optional[dict] = None) -> torch.Tensor:
     """Both-branch Fresnel path tracing: at a transmissive hit a lane
     follows the refracted branch with weight ``1 - R`` and pushes the
     reflected one (weight ``R``, resuming at ``bounce + 1``) onto its
-    stack of ``S = min(depth, 6)`` slots; a lane
+    stack of ``S = stack_size`` slots (``min(depth, 6)`` if None); a lane
     that dies pops its latest deferred branch.  A lane whose stack is full
     samples one branch as :func:`trace_paths` does, so the estimator is
     unbiased at any stack size; the split only lowers the variance.
@@ -731,15 +733,18 @@ def trace_paths_split(scene, cfg: RenderConfig, origins: torch.Tensor,
     rows of its own depth, so a deferred branch re-reads the rows its
     sibling read at that depth.  The loop runs one :func:`_split_step` an
     iteration with one host readback (are any lanes alive?), at most
-    ``2 * sum_{k <= S} C(depth, k) + 1`` iterations: a lane visits at most
-    that many nodes of its branch tree, and pops once per push.  Returns
-    ``radiance (N, 3)`` (no TraceRecord).  ``stats``, if given, receives
-    ``iterations``."""
+    ``max_iters`` iterations, or if that is None or 0
+    ``2 * sum_{k <= min(S, depth)} C(depth, k) + 1``: a lane visits at
+    most that many nodes of its branch tree, and pops once per push.  A
+    run cut by ``max_iters`` returns the radiance gathered so far and
+    drops the branches left on the stacks.  Returns ``radiance (N, 3)``
+    (no TraceRecord).  ``stats``, if given, receives ``iterations``."""
     _check_config(cfg)
     n = origins.shape[0]
     depth = cfg.max_depth
-    S = min(depth, 6)
-    iters = 2 * sum(math.comb(depth, k) for k in range(S + 1)) + 1
+    S = stack_size if stack_size is not None else min(depth, 6)
+    nodes = sum(math.comb(depth, k) for k in range(min(S, depth) + 1))
+    iters = max_iters or 2 * nodes + 1
     big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
 
     state = PathState.initial(origins, directions)

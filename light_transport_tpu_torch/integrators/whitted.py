@@ -16,7 +16,8 @@ Two tracers walk the reflect/refract tree:
   children's lanes masked by ``active`` (2^(depth+1) - 1 nodes);
 * :func:`trace_whitted_queue` follows the heavier branch of each lane and
   pushes the other onto a per-lane stack (``ops.lanestack``), dropping
-  branches whose luminance weight is below ``WEIGHT_CUTOFF``: one
+  branches whose luminance weight is at or below ``weight_cutoff``
+  (``WEIGHT_CUTOFF`` by default): one
   :func:`_queue_step` a superstep, with one host readback (are any lanes
   left?) each.
 
@@ -47,7 +48,8 @@ from light_transport_tpu_torch.ops.dispatch import (
 from light_transport_tpu_torch.scene.analytic import surface_attrs
 from light_transport_tpu_torch.scene.material import BSDF_MIRROR
 
-# the queue drops a branch whose weight's luminance is at or below this
+# the queue's default cutoff: it drops a branch whose weight's luminance
+# is at or below it
 WEIGHT_CUTOFF = 1e-3
 # render_whitted unrolls the tree up to this depth, and queues it beyond
 UNROLL_MAX_DEPTH = 4
@@ -168,6 +170,8 @@ def hemisphere_uniforms(seed: int, index: int, k: int, n: int,
 
 def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
                         ray_chunk: Optional[int] = None,
+                        weight_cutoff: float = WEIGHT_CUTOFF,
+                        max_iters: Optional[int] = None,
                         indirect_samples: int = 0, seed: int = 0,
                         uniforms: Optional[Sequence[torch.Tensor]] = None,
                         stats: Optional[dict] = None) -> torch.Tensor:
@@ -175,7 +179,7 @@ def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
 
     Each lane shades one tree node a superstep, follows the heavier of its
     reflect and refract children and pushes the other if its weight's
-    luminance passes ``WEIGHT_CUTOFF``; a lane without a child pops its
+    luminance is above ``weight_cutoff``; a lane without a child pops its
     latest deferred branch.  The image differs from :func:`trace_whitted`
     by the dropped subtrees only.  The stack holds ``depth + 1`` slots,
     and ``indirect_samples + depth`` more for the indirect children.
@@ -185,8 +189,10 @@ def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
     weight ``o_dif * cos * 0.1 / k``, each deeper node one.  Superstep
     ``it`` draws its children's uniforms by :func:`hemisphere_uniforms`
     ``(seed, it, ...)``, or takes ``uniforms[it]`` ((k, N, 2)) when given.
-    At most ``2^(depth+1) - 1 + indirect_samples * (2 depth + 1)``
-    supersteps; ``stats``, if given, receives ``supersteps``."""
+    At most ``max_iters`` supersteps, or if that is None
+    ``2^(depth+1) - 1 + indirect_samples * (2 depth + 1)``; a run cut
+    short returns the color gathered so far (``max_iters=0``: zeros).
+    ``stats``, if given, receives ``supersteps``."""
     n = o.shape[0]
     gi = int(indirect_samples)
     S = depth + 1 + (gi + depth if gi else 0)
@@ -197,7 +203,8 @@ def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
            torch.ones((n,), dtype=torch.bool, device=o.device))
     stack = lanestack.zeros((o, d, torch.zeros((n, 3), **kw), dep), S)
     top = torch.zeros_like(dep)
-    iters = 2 ** (depth + 1) - 1 + gi * (2 * depth + 1)
+    iters = (max_iters if max_iters is not None
+             else 2 ** (depth + 1) - 1 + gi * (2 * depth + 1))
     done = 0
     for it in range(iters):
         u_gi = None
@@ -206,7 +213,7 @@ def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
             u_gi = (uniforms[it] if uniforms is not None
                     else hemisphere_uniforms(seed, it, k_gi, n, o))
         color, cur, stack, top, any_act = _queue_step(
-            scene, color, cur, stack, top, ray_chunk, S, u_gi)
+            scene, color, cur, stack, top, ray_chunk, weight_cutoff, S, u_gi)
         done = it + 1
         if not bool(any_act):  # one readback a superstep
             break
@@ -215,11 +222,13 @@ def trace_whitted_queue(scene, o: torch.Tensor, d: torch.Tensor, depth: int,
     return color
 
 
-def _queue_step(scene, color, cur, stack, top, ray_chunk, S, u_gi=None):
+def _queue_step(scene, color, cur, stack, top, ray_chunk, weight_cutoff, S,
+                u_gi=None):
     """One superstep of :func:`trace_whitted_queue`: shade every active
     lane's node, push its indirect children (``u_gi``: (k, N, 2)
-    uniforms, or None) and its lighter significant child, and move it to
-    its heavier child or its latest deferred branch.  Returns ``(color,
+    uniforms, or None) and its lighter child whose weight's luminance is
+    above ``weight_cutoff``, and move it to its heavier such child or its
+    latest deferred branch.  Returns ``(color,
     cur, stack, top, any_act)``, the last a device bool."""
     cur_o, cur_d, cur_w, cur_dep, cur_act = cur
     hit = _hit(scene, cur_o, cur_d, ray_chunk, active=cur_act)
@@ -234,8 +243,8 @@ def _queue_step(scene, color, cur, stack, top, ray_chunk, S, u_gi=None):
                      cur_w * ((1.0 - refl_coef) * transmission)[:, None],
                      zero)
     lum_refl, lum_refr = lm.luminance(w_refl), lm.luminance(w_refr)
-    refl_sig = lum_refl > WEIGHT_CUTOFF
-    refr_sig = lum_refr > WEIGHT_CUTOFF
+    refl_sig = lum_refl > weight_cutoff
+    refr_sig = lum_refr > weight_cutoff
     r_dir = lm.reflect(cur_d, n_s)
     t_o = hp - 1e-3 * n_s
 
@@ -246,7 +255,7 @@ def _queue_step(scene, color, cur, stack, top, ray_chunk, S, u_gi=None):
                                               u_gi[s][:, 1])
         cosg = torch.clamp(lm.dot(gdir, n_s), min=0.0)
         w_gi = cur_w * o_dif * (cosg * 0.1 / k_gi)[:, None]
-        push_gi = can_recurse & (lm.luminance(w_gi) > WEIGHT_CUTOFF)
+        push_gi = can_recurse & (lm.luminance(w_gi) > weight_cutoff)
         stack, top = lanestack.push(stack, top, push_gi,
                                     (shifted, gdir, w_gi, cur_dep - 1), S)
 

@@ -35,6 +35,8 @@ def push(stack, top, lane_mask, payload, size: int):
     ``top`` slot and advance; the others are untouched.  The stack's
     tensors are updated in place and returned with the new ``top``.
     Callers gate ``lane_mask`` on ``top < size`` themselves."""
+    if size == 0:  # no slot: the callers' gate leaves no lane to push
+        return stack, top
     lanes, idx = _slots(top, size)
     for s, p in zip(stack, payload):
         m = lane_mask.reshape(lane_mask.shape + (1,) * (p.dim() - 1))
@@ -47,5 +49,8 @@ def peek(stack, top, size: int):
     which holds whatever was last pushed there (a pop only decrements
     ``top``): callers mask the result with their own ``can_pop = top > 0``
     and decrement ``top`` themselves."""
+    if size == 0:  # nothing to read: zeros, as JAX's empty select gives
+        return tuple(s.new_zeros((s.shape[0],) + tuple(s.shape[2:]))
+                     for s in stack)
     lanes, idx = _slots(top - 1, size)
     return tuple(s[lanes, idx] for s in stack)
