@@ -861,7 +861,7 @@ def plain_intersector():
     try:
         for wrapper, ref, _ in KERNELS.values():
             setattr(ik, wrapper, lambda *a, _ref=ref: _ref(*a[:-1]))
-        ik.tile_cull = ik.tile_cull_reference
+        ik.tile_cull = lambda *a, counts=None: ik.tile_cull_reference(*a)
         yield
     finally:
         for name, fn in saved.items():
@@ -1037,11 +1037,12 @@ class CullRecorder:
     def __init__(self):
         self.events, self.launched = [], []
 
-    def __call__(self, *args):
+    def __call__(self, *args, counts=None):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = launch_counted(self.name, self.wrapped, args)
+        out = launch_counted(
+            self.name, lambda *a: self.wrapped(*a, counts=counts), args)
         b.record()
         self.events.append((a, b))
         self.launched.append((args, out))

@@ -6,6 +6,7 @@ from __future__ import annotations
 from typing import Optional
 
 from light_transport_tpu_torch.core.config import PhotonRunConfig, RenderConfig
+from light_transport_tpu_torch.utils import profiling
 
 
 def simulate(medium, run_cfg: Optional[PhotonRunConfig] = None,
@@ -32,7 +33,13 @@ def render(scene, cfg: Optional[RenderConfig] = None, seed: int = 0,
     sampler and the thin lens apply to the path and adaptive integrators
     only.  The control-variates render has its own entry,
     ``integrators.control_variates.render_cv`` (iid draws: it refuses the
-    Sobol' sampler)."""
+    Sobol' sampler).  While a ``torch.profiler`` records, the render is
+    one ``lt.frame`` of ``utils.profiling`` (its spans and counters)."""
+    with profiling.frame():
+        return _render(scene, cfg, seed, integrator, ray_chunk)
+
+
+def _render(scene, cfg, seed, integrator, ray_chunk):
     if integrator not in ("path", "adaptive", "whitted", "bdpt"):
         raise ValueError(f"unknown integrator: {integrator}")
     cfg = cfg or RenderConfig()

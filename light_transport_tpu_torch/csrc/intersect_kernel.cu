@@ -201,12 +201,15 @@ __device__ __forceinline__ bool slab_enters(const float* o, const float* inv,
 
 // c_lo, c_hi: (C, 3) box corners.  ids: (tiles, C), of which each tile's
 // first cnt[tile] entries are written: its admitted ids, ascending.
+// counts: null, or two int64 counters to which each block adds its tile's
+// admitted count and its rays with tmax > tmin.
 __global__ void __launch_bounds__(kRayTile)
     tile_cull_kernel(const float* __restrict__ feats,
                      const float* __restrict__ tminmax,
                      const float* __restrict__ c_lo,
                      const float* __restrict__ c_hi, int n_clusters,
-                     int32_t* __restrict__ ids, int32_t* __restrict__ cnt) {
+                     int32_t* __restrict__ ids, int32_t* __restrict__ cnt,
+                     unsigned long long* __restrict__ counts) {
   __shared__ float4 box[2 * kBoxPiece];  // (lo.xyz, hi.x), (hi.yz, -, -)
   __shared__ unsigned words[kBoxWords];  // admitted bits of the piece
   const int tile = blockIdx.x;
@@ -254,6 +257,13 @@ __global__ void __launch_bounds__(kRayTile)
     __syncthreads();  // the next piece overwrites box and words
   }
   if (threadIdx.x == 0) cnt[tile] = n_adm;
+  if (counts != nullptr) {  // the same in every thread of the block
+    const int live = __syncthreads_count(tmax > tmin);
+    if (threadIdx.x == 0) {
+      atomicAdd(&counts[0], (unsigned long long)n_adm);
+      atomicAdd(&counts[1], (unsigned long long)live);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -492,12 +502,15 @@ extern "C" int intersect_dense_blocks_per_sm(int pieces, int* blocks) {
       blocks, intersect_dense_kernel, kRayTile, pieces * kPieceBytes);
 }
 
+// counts: null, or (2,) int64 added to (see tile_cull_kernel).
 extern "C" int tile_cull_launch(const float* feats, const float* tminmax,
                                 const float* c_lo, const float* c_hi,
                                 int n_tiles, int n_clusters, int32_t* ids,
-                                int32_t* cnt, void* stream) {
+                                int32_t* cnt, long long* counts,
+                                void* stream) {
   tile_cull_kernel<<<n_tiles, kRayTile, 0, (cudaStream_t)stream>>>(
-      feats, tminmax, c_lo, c_hi, n_clusters, ids, cnt);
+      feats, tminmax, c_lo, c_hi, n_clusters, ids, cnt,
+      reinterpret_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }
 

@@ -59,6 +59,7 @@ from light_transport_tpu_torch.scene.material import (
     BSDF_MIRROR,
     BSDF_TRANSMISSIVE,
 )
+from light_transport_tpu_torch.utils import profiling
 
 
 class PathState(NamedTuple):
@@ -141,6 +142,7 @@ def _shadowed(scene, cfg, contrib, shadow_o, wi, max_dist, active,
     return _where3(blk, torch.zeros_like(contrib), contrib)
 
 
+@profiling.spanned("lt.nee")
 def _direct_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy,
                   diffuse_rgb, spec_rgb, shin, f_diffuse, nee_active,
                   ray_chunk):
@@ -211,6 +213,7 @@ def _area_light(scene, cfg, u, shadow_o, n_s, m_dir, is_glossy, diffuse_rgb,
                      nee_active, ray_chunk)
 
 
+@profiling.spanned("lt.bounce")
 def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
             bounce: Union[int, torch.Tensor],
             ray_chunk: Optional[int] = None, coherent: bool = False,
@@ -228,6 +231,7 @@ def _bounce(scene, cfg: RenderConfig, state: PathState, u: torch.Tensor,
     allowed (a full stack) keep the stochastic rule."""
     mats = scene.materials
     eps = lm.EPSILON
+    profiling.count_lanes(state.alive.shape[0])
 
     hit = scene_intersect(scene, state.origin, state.direction,
                           ray_chunk=ray_chunk, active=state.alive,
@@ -471,8 +475,10 @@ def trace_paths(scene, cfg: RenderConfig, origins: torch.Tensor,
         state, rec = _bounce(scene, cfg, state, uniforms[:, b], b, ray_chunk,
                              coherent=big and b == 0)
         recs.append(rec)
-    return state.radiance, TraceRecord(
-        *(torch.stack(parts, dim=1) for parts in zip(*recs)))
+    with profiling.span("lt.record"):
+        record = TraceRecord(*(torch.stack(parts, dim=1)
+                               for parts in zip(*recs)))
+    return state.radiance, record
 
 
 def camera_rays(scene, cfg: RenderConfig, u_aa: torch.Tensor,
@@ -543,6 +549,7 @@ def _pixel_camera_offsets(scene, cfg: RenderConfig, pixel_ids: torch.Tensor,
     return origin, pixel - origin
 
 
+@profiling.spanned("lt.camera")
 def _camera_lanes(scene, cfg: RenderConfig, seed: int,
                   sample_offset: int = 0):
     """Camera lanes and their path uniforms by ``cfg.sampler``.
@@ -678,18 +685,19 @@ def trace_paths_compact(scene, cfg: RenderConfig, origins: torch.Tensor,
         b = min(b + segment, cfg.max_depth)
         if b >= cfg.max_depth or width <= min_width:
             continue
-        n_alive = int(state.alive.sum())  # the segment's one readback
-        counts.append(n_alive)
-        new_w = width
-        while new_w > min_width and n_alive <= new_w // 2:
-            new_w //= 2
-        if new_w < width:
-            out.index_copy_(0, lane_ids, state.radiance)
-            order = _live_first(state.alive, n_alive)[:new_w]
-            state = PathState(*(f[order] for f in state))
-            uniforms = uniforms[order, b - u0:]
-            u0 = b
-            lane_ids = lane_ids[order]
+        with profiling.span("lt.compact"):
+            n_alive = int(state.alive.sum())  # the segment's one readback
+            counts.append(n_alive)
+            new_w = width
+            while new_w > min_width and n_alive <= new_w // 2:
+                new_w //= 2
+            if new_w < width:
+                out.index_copy_(0, lane_ids, state.radiance)
+                order = _live_first(state.alive, n_alive)[:new_w]
+                state = PathState(*(f[order] for f in state))
+                uniforms = uniforms[order, b - u0:]
+                u0 = b
+                lane_ids = lane_ids[order]
     if stats is not None:
         stats["widths"] = widths
         stats["alive"] = counts

@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 
 from light_transport_tpu_torch.ops import intersect
+from light_transport_tpu_torch.utils import profiling
 
 # above this many triangles JAX walks the BVH (its MXU/BVH crossover)
 MXU_MAX_TRIS = 1_048_576
@@ -70,6 +71,13 @@ SMALL_MESH_TRIS = 48
 TREELET_WAVEFRONT = False
 WAVEFRONT_LOADS_PER_PASS = 1
 WAVEFRONT_MAX_PASSES = 12
+
+
+def _isect(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, an intersector call, in the ``lt.isect``
+    span."""
+    with profiling.span("lt.isect"):
+        return fn(*args, **kwargs)
 
 
 def _use_cluster_intersector(scene, coherent: bool = False) -> bool:
@@ -107,19 +115,21 @@ def _bvh_query(scene, origins, directions, t_max, active, any_hit,
     from light_transport_tpu_torch.ops.raysort import sorted_apply
 
     if scene.treelet is None:
-        return tk.intersect_bvh_treelet(origins, directions,
-                                        tk.TreeletTables.of(scene.bvh),
-                                        t_max=t_max, any_hit=any_hit)
+        return _isect(tk.intersect_bvh_treelet, origins, directions,
+                      tk.TreeletTables.of(scene.bvh), t_max=t_max,
+                      any_hit=any_hit)
     if TREELET_WAVEFRONT and not coherent:
         # self-sorting: the per-pass cursor sort replaces the coherence sort
-        return tk.intersect_bvh_treelet_wavefront(
+        return _isect(
+            tk.intersect_bvh_treelet_wavefront,
             origins, directions, scene.treelet, t_max=t_max, any_hit=any_hit,
             loads_per_pass=WAVEFRONT_LOADS_PER_PASS,
             max_passes=WAVEFRONT_MAX_PASSES)
     return sorted_apply(
         lambda o, d, t: (
-            tk.occluded_bvh_treelet(o, d, scene.treelet, t) if any_hit
-            else tk.intersect_bvh_treelet(o, d, scene.treelet, t_max=t)),
+            _isect(tk.occluded_bvh_treelet, o, d, scene.treelet, t)
+            if any_hit else _isect(tk.intersect_bvh_treelet, o, d,
+                                   scene.treelet, t_max=t)),
         scene.mesh, origins, directions, t_max,
         inactive=None if active is None else ~active)
 
@@ -136,6 +146,7 @@ def _big_mesh(scene, origins) -> bool:
     return scene.bvh is not None
 
 
+@profiling.spanned("lt.query.nearest")
 def scene_intersect(scene, origins, directions,
                     ray_chunk: Optional[int] = None, active=None,
                     coherent: bool = False):
@@ -147,9 +158,8 @@ def scene_intersect(scene, origins, directions,
     scene tests every lane, as JAX's does; callers mask the inactive."""
     origins, directions = origins.detach(), directions.detach()
     if scene.watertight:
-        hit = intersect.intersect_rays_watertight(origins, directions,
-                                                  scene.mesh,
-                                                  ray_chunk=ray_chunk)
+        hit = _isect(intersect.intersect_rays_watertight, origins,
+                     directions, scene.mesh, ray_chunk=ray_chunk)
     elif _use_cluster_intersector(scene, coherent):
         from light_transport_tpu_torch.ops.intersect_kernel import (
             intersect_rays_pallas,
@@ -158,17 +168,17 @@ def scene_intersect(scene, origins, directions,
 
         weights, clusters, records = _tables(scene)
         hit = sorted_apply(
-            lambda o, d, tm: intersect_rays_pallas(
-                o, d, scene.mesh, tri_weights=weights, t_max=tm,
-                clusters=clusters, records=records),
+            lambda o, d, tm: _isect(
+                intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
+                t_max=tm, clusters=clusters, records=records),
             scene.mesh, origins, directions, _t_max(origins, active),
             inactive=None if active is None else ~active)
     elif _big_mesh(scene, origins):
         hit = _bvh_query(scene, origins, directions,
                          _t_max(origins, active), active, False, coherent)
     else:
-        hit = intersect.intersect_rays(origins, directions, scene.mesh,
-                                       ray_chunk=ray_chunk)
+        hit = _isect(intersect.intersect_rays, origins, directions,
+                     scene.mesh, ray_chunk=ray_chunk)
     hit = _merge_analytic(scene, hit, origins, directions)
     return hit._replace(t=hit.t.detach())
 
@@ -195,6 +205,7 @@ def _merge_analytic(scene, hit, origins, directions):
         prim=torch.where(a_wins, idx_a, 0))
 
 
+@profiling.spanned("lt.query.any")
 def scene_occluded(scene, origins, directions, max_dist,
                    ray_chunk: Optional[int] = None, active=None):
     """Any-hit visibility against the scene; inactive lanes are skipped and
@@ -204,8 +215,8 @@ def scene_occluded(scene, origins, directions, max_dist,
         md = _t_max(origins, None, max_dist)
         if active is not None:
             md = torch.where(active, md, 0.0)  # an empty interval
-        occ = intersect.occluded_watertight(origins, directions, scene.mesh,
-                                            md, ray_chunk=ray_chunk)
+        occ = _isect(intersect.occluded_watertight, origins, directions,
+                     scene.mesh, md, ray_chunk=ray_chunk)
     elif _use_cluster_intersector(scene):
         from light_transport_tpu_torch.ops.intersect_kernel import (
             intersect_rays_pallas,
@@ -214,9 +225,10 @@ def scene_occluded(scene, origins, directions, max_dist,
 
         weights, clusters, records = _tables(scene)
         occ = sorted_apply(
-            lambda o, d, m: intersect_rays_pallas(
-                o, d, scene.mesh, tri_weights=weights, any_hit=True,
-                max_dist=m, clusters=clusters, records=records),
+            lambda o, d, m: _isect(
+                intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
+                any_hit=True, max_dist=m, clusters=clusters,
+                records=records),
             scene.mesh, origins, directions,
             _t_max(origins, active, max_dist),
             inactive=None if active is None else ~active)
@@ -225,8 +237,8 @@ def scene_occluded(scene, origins, directions, max_dist,
                          _t_max(origins, active, max_dist), active, True,
                          False)
     else:
-        occ = intersect.occluded(origins, directions, scene.mesh, max_dist,
-                                 ray_chunk=ray_chunk)
+        occ = _isect(intersect.occluded, origins, directions, scene.mesh,
+                     max_dist, ray_chunk=ray_chunk)
     prims = scene.analytic
     if prims is not None and prims.num > 0:
         from light_transport_tpu_torch.scene.analytic import (

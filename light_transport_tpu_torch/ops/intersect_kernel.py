@@ -43,6 +43,7 @@ import torch
 
 from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.ops.intersect import DET_EPS, Hit
+from light_transport_tpu_torch.utils import profiling
 
 RAY_TILE = 128
 TRI_TILE = 512
@@ -445,23 +446,33 @@ def intersect_dense_keys(feats, tminmax, recs, c_lo, c_hi, any_hit=False,
     return keys
 
 
-def tile_cull(feats, tminmax, c_lo, c_hi):
+def tile_cull(feats, tminmax, c_lo, c_hi, counts=None):
     """The cull in front of K4: on the card the cull kernel, for CPU
     tensors :func:`tile_cull_reference`.  Returns each tile's admitted
     cluster ids, ascending (``(tiles, C)`` int32, of which only each
     tile's first ``cnt`` entries are written on the card), and ``cnt``
-    (``(tiles,)`` int32)."""
+    (``(tiles,)`` int32).  ``counts``, if given, a ``(2,)`` int64 tensor
+    on the rays' device, receives the sum of ``cnt`` and the number of
+    rays with ``t_max > t_min`` (added to it: on the card by the cull
+    kernel itself)."""
     if _device_type(feats, "tile_cull") == "cpu":
-        return tile_cull_reference(feats, tminmax, c_lo, c_hi)
+        ids, cnt = tile_cull_reference(feats, tminmax, c_lo, c_hi)
+        if counts is not None:
+            counts += torch.stack([cnt.sum(dtype=torch.int64),
+                                   (tminmax[:, 1] > tminmax[:, 0]).sum()])
+        return ids, cnt
     dev = feats.device
     tiles, c = _tiles("tile_cull", feats, tminmax), c_lo.shape[0]
     _check(c_lo, torch.float32, (c, 3), "c_lo", dev)
     _check(c_hi, torch.float32, (c, 3), "c_hi", dev)
+    if counts is not None:
+        _check(counts, torch.int64, (2,), "counts", dev)
     ids = torch.empty((tiles, c), dtype=torch.int32, device=dev)
     cnt = torch.empty((tiles,), dtype=torch.int32, device=dev)
     if tiles:
         _run("tile_cull", dev, _ptr(feats), _ptr(tminmax), _ptr(c_lo),
-             _ptr(c_hi), tiles, c, _ptr(ids), _ptr(cnt))
+             _ptr(c_hi), tiles, c, _ptr(ids), _ptr(cnt),
+             ctypes.c_void_p(None if counts is None else counts.data_ptr()))
     return ids, cnt
 
 
@@ -547,7 +558,9 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     if records is None:
         records = cluster_records(tri_weights)
     if tri_weights.shape[2] // TRI_TILE >= GATHER_MIN_CLUSTERS:
-        ids, cnt = tile_cull(feats, tminmax, c_lo, c_hi)
+        ids, cnt = tile_cull(feats, tminmax, c_lo, c_hi,
+                             counts=profiling.cull_counts(
+                                 "any" if any_hit else "nearest", dev))
         best_t, best_tri = intersect_gather(feats, tminmax, records, ids, cnt,
                                             any_hit)
         best_t, best_tri = best_t[:n], best_tri[:n]

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from light_transport_tpu_torch.utils import profiling
+
 # below this lane count tiles are too few for sorting to change the cull
 MIN_SORT_LANES = 4096
 
@@ -58,10 +60,13 @@ def ray_sort_key(origins, directions, lo, hi, inactive=None):
     return key
 
 
+@profiling.spanned("lt.sort")
 def sorted_apply(fn, mesh, origins, directions, *per_ray, inactive=None):
     """Run ``fn(origins, directions, *per_ray)`` on coherence-sorted lanes
     (a stable sort) and return its result, a tensor or a tuple of
-    tensors (None entries kept), in input order."""
+    tensors (None entries kept), in input order.  The ``lt.sort`` span
+    covers the call, ``fn``'s included, and opens also where a batch under
+    ``MIN_SORT_LANES`` goes unsorted."""
     if origins.shape[0] < MIN_SORT_LANES:
         return fn(origins, directions, *per_ray)
     lo, hi = scene_bounds(mesh)
