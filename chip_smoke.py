@@ -349,7 +349,8 @@ PEAK_FP32_ISSUE = 128 * H100_SMS * H100_CLOCK
 # adds, one divide and six compares (csrc/intersect_kernel.cu)
 PAIR_OPS = 45
 # operations per (ray, cluster box) slab test of the cull: 6 subtracts, 6
-# multiplies, 10 min/max and 3 compares (csrc/intersect_kernel.cu)
+# multiplies, 10 min/max and 3 compares (csrc/intersect_kernel.cu); K4's
+# test of a ray against a group's box is the same
 CULL_OPS = 25
 SOFT_SHADOW_CFG = RenderConfig(width=400, height=400, spp=10, max_depth=3,
                                f_distance=3.5)
@@ -860,7 +861,7 @@ def plain_intersector():
     before = dict(ik.LAUNCHES)
     try:
         for wrapper, ref, _ in KERNELS.values():
-            setattr(ik, wrapper, lambda *a, _ref=ref: _ref(*a[:-1]))
+            setattr(ik, wrapper, lambda *a, _ref=ref, **kw: _ref(*a[:-1]))
         ik.tile_cull = lambda *a, counts=None: ik.tile_cull_reference(*a)
         yield
     finally:
@@ -917,6 +918,16 @@ def compare_launch(label, args, got, want, exact=False, quiet=False):
     return err
 
 
+class Launch(tuple):
+    """A wrapper's positional operands, with the keywords it was given
+    besides ``counts`` (``kw``: K4's group boxes)."""
+
+    def __new__(cls, args, kw):
+        self = super().__new__(cls, args)
+        self.kw = {k: v for k, v in kw.items() if k != "counts"}
+        return self
+
+
 class Recorder:
     """Wraps an intersector wrapper while installed: CUDA events around
     each launch, the admitted (tile, cluster) pairs of each, and the
@@ -928,12 +939,20 @@ class Recorder:
         self.name = name
         self.wrapper, self.plain, self.count_pairs = KERNELS[name]
         self.events, self.pairs, self.launched = [], [], []
+        self.tested = {}  # K4: launch -> (warp, group) pairs it tested
 
-    def __call__(self, *args):
+    def run(self, args, **extra):
+        """The wrapped wrapper on recorded operands, counting the launch."""
+        return launch_counted(
+            self.name, lambda *a: self.wrapped(*a, **args.kw, **extra), args)
+
+    def __call__(self, *args, **kw):
+        args = Launch(args, kw)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        out = launch_counted(self.name, self.wrapped, args)
+        out = launch_counted(self.name,
+                             lambda *x: self.wrapped(*x, **kw), args)
         b.record()
         self.events.append((a, b))
         self.pairs.append(self.count_pairs(args))
@@ -963,21 +982,47 @@ class Recorder:
     def hold_every(self, label, quiet=False):
         """Every recorded launch again through the kernel and through its
         plain version on the same operands, bitwise (``quiet``: without a
-        log line a launch).  Returns the number of kernel launches held
-        (calls with rays)."""
+        log line a launch); K4's count of the groups it tested against
+        the plain count (nearest hit: equal; any hit: at most that).
+        Returns the number of kernel launches held (calls with rays)."""
         for k, (pairs, args) in enumerate(self.launched):
             mode = "any-hit" if args[-1] else "nearest"
-            compare_launch(f"{label}, {self.name} launch {k} ({mode}, "
-                           f"{int(pairs)} pairs)", args,
-                           launch_counted(self.name, self.wrapped, args),
+            tag = (f"{label}, {self.name} launch {k} ({mode}, "
+                   f"{int(pairs)} pairs)")
+            extra = {}
+            if self.name == "intersect_gather":
+                extra["counts"] = torch.zeros(1, dtype=torch.int64,
+                                              device=DEV)
+            compare_launch(tag, args, self.run(args, **extra),
                            self.plain(*args[:-1]), exact=True, quiet=quiet)
+            if extra:
+                self.hold_count(k, tag, args, int(extra["counts"]), quiet)
         return sum(args[0].shape[0] > 0 for _, args in self.launched)
 
+    def hold_count(self, k, tag, args, got, quiet):
+        """K4's count of launch ``k`` against the plain count; kept for
+        its bound."""
+        feats, tminmax, _, ids, cnt, any_hit = args
+        want = int(ik.gather_group_count(feats, tminmax, ids, cnt,
+                                         *args.kw["groups"]))
+        live = int((tminmax[:, 1] > tminmax[:, 0]).sum())
+        self.tested[k] = got
+        if not quiet:
+            issued = got * 32 * ik.GROUP_TRIS
+            admitted = int(cnt.sum()) * ik.RAY_TILE * ik.TRI_TILE
+            log(10, f"{tag}: groups tested {got} (plain {want}); tests a "
+                    f"live ray issued {issued / max(live, 1):.1f}, "
+                    f"admitted {admitted / max(live, 1):.1f}")
+        check(got <= want if any_hit else got == want,
+              f"{tag}: K4 tested {got} groups, the plain count {want}")
+
     def heaviest(self, any_hit):
-        """The operands of the launch of that mode that admitted the most
+        """The index of the launch of that mode that admitted the most
         pairs (None if there was none)."""
-        runs = [pa for pa in self.launched if bool(pa[1][-1]) == any_hit]
-        return max(runs, key=lambda pa: int(pa[0]))[1] if runs else None
+        runs = [k for k, pa in enumerate(self.launched)
+                if bool(pa[1][-1]) == any_hit]
+        return (max(runs, key=lambda k: int(self.launched[k][0])) if runs
+                else None)
 
     def kernel_and_plain(self):
         """The nearest-hit and the any-hit launch that admitted the most
@@ -988,10 +1033,11 @@ class Recorder:
         nearest-hit one."""
         held = {}
         for any_hit in (False, True):
-            args = self.heaviest(any_hit)
-            if args is None:
+            k = self.heaviest(any_hit)
+            if k is None:
                 continue
-            got = launch_counted(self.name, self.wrapped, args)
+            args = self.launched[k][1]
+            got = self.run(args)
             want = []
             ms_p = time_once(lambda: want.append(self.plain(*args[:-1])))
             mode = "any-hit" if any_hit else "nearest"
@@ -999,30 +1045,44 @@ class Recorder:
                 f"{self.name}, heaviest {mode} launch of the run "
                 f"({int(self.count_pairs(args))} pairs)", args, got, want[0],
                 exact=True)
-            held[any_hit] = (args, ms_p, err)
-        args, ms_p, err = held[False]
-        ms = cuda_ms(lambda: self.wrapped(*args), 5)
-        return (ms, ms_p, self.bound(args), int(self.count_pairs(args)), err,
-                self.bound(args, PEAK_FP32)[0])
+            held[any_hit] = (k, ms_p, err)
+        k, ms_p, err = held[False]
+        args = self.launched[k][1]
+        ms = cuda_ms(lambda: self.wrapped(*args, **args.kw), 5)
+        return (ms, ms_p, self.bound(args, k=k), int(self.count_pairs(args)),
+                err, self.bound(args, PEAK_FP32, k=k)[0])
 
-    def bound(self, args, peak=PEAK_FP32_ISSUE):
-        """The bound of one launch on ``args``: its admitted pairs'
-        operations (and for K3 its cull's slab tests, every ray against
-        every box) at ``peak`` or its operands' bytes: the rays' features
-        and intervals, the records, K3's boxes or K4's id lists, and a key
-        a ray."""
+    def bound(self, args, peak=PEAK_FP32_ISSUE, k=None):
+        """The bound of one launch on ``args`` (launch ``k`` of the
+        recorder): its tests' operations at ``peak`` or its operands'
+        bytes: the rays' features and intervals, the records, K3's boxes
+        or K4's id lists, and a key a ray.  K3's tests: its admitted
+        pairs' and its cull's slab tests (every ray against every box).
+        K4's: the group tests of each ray of its admitted pairs, and the
+        ray-triangle tests of the (warp, group) pairs it tested (its own
+        count, from ``hold_every``; else the plain count)."""
         feats, recs = args[0], args[2]
-        ops = int(self.count_pairs(args)) * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS
+        pairs = int(self.count_pairs(args))
         if self.name == "intersect_dense":
-            ops += feats.shape[0] * recs.shape[0] * CULL_OPS
+            ops = (pairs * ik.RAY_TILE * ik.TRI_TILE * PAIR_OPS
+                   + feats.shape[0] * recs.shape[0] * CULL_OPS)
+        else:
+            tested = self.tested.get(k)
+            if tested is None:
+                tested = int(ik.gather_group_count(
+                    feats, args[1], args[3], args[4], *args.kw["groups"]))
+            ops = (tested * 32 * ik.GROUP_TRIS * PAIR_OPS
+                   + pairs * ik.RAY_TILE * ik.GROUPS * CULL_OPS)
         lists = sum(x.numel() * x.element_size() for x in args[3:-1])
+        lists += sum(x.numel() * 4 for x in args.kw.get("groups", ()))
         nbytes = (feats.numel() * 4 + args[1].numel() * 4
                   + recs.numel() * 4 + lists + feats.shape[0] * 8)
         return bound_ms(ops, nbytes, peak)
 
     def mean_bound(self):
         """The bound averaged over every launch the recorder saw."""
-        return sum(self.bound(a)[0] for _, a in self.launched) / max(
+        return sum(self.bound(a, k=k)[0]
+                   for k, (_, a) in enumerate(self.launched)) / max(
             len(self.launched), 1)
 
 
@@ -1227,6 +1287,49 @@ def shadow_batches(scene, label):
             (f"{label} interior rays", oi, di, active, md)]
 
 
+def grazing_batches(scene, n=16384):
+    """Rays at the edges of K4's group test on a scene of 16 clusters or
+    more, every 9th lane inactive, each batch as (label, o, d, active,
+    any-hit distance): rays in a face plane of a group's padded box or of
+    its triangles' own box (a direction component exactly 0: the slab
+    test's 1e-20 guard), along the face's two axes or between them; rays
+    along an axis through a box; and rays that start inside a box."""
+    g = generator(6)
+    lo, hi = (b.reshape(-1, 3) for b in ik.cluster_group_bounds(scene.mesh))
+    pad = ik._triangle_boxes(scene.mesh)[2]
+    pick = torch.randint(0, lo.shape[0], (n,), generator=g, device=DEV)
+    lo, hi = lo[pick], hi[pick]
+    inside = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=DEV)
+    rows = torch.arange(n, device=DEV)
+    axis = torch.randint(0, 3, (n,), generator=g, device=DEV)
+    # the face: the padded box's, or the triangles' own extreme
+    low = torch.rand(n, generator=g, device=DEV) < 0.5
+    own = torch.rand(n, generator=g, device=DEV) < 0.5
+    face = torch.where(low, lo[rows, axis] + own * pad,
+                       hi[rows, axis] - own * pad)
+    o_face = inside.clone()
+    o_face[rows, axis] = face
+    d_face = torch.randn((n, 3), generator=g, device=DEV)
+    d_face[rows, axis] = 0.0
+    # along one of the face's axes on a third of the rays
+    other = (axis + torch.randint(1, 3, (n,), generator=g, device=DEV)) % 3
+    d_face[rows[::3], other[::3]] = 0.0
+    o_face = o_face - 2.0 * torch.nn.functional.normalize(d_face, dim=-1)
+    d_axis = torch.zeros((n, 3), device=DEV)
+    d_axis[rows, axis] = torch.where(low, 1.0, -1.0)
+    o_axis = inside - 2.0 * d_axis
+    d_in = torch.randn((n, 3), generator=g, device=DEV)
+    active = torch.ones(n, dtype=torch.bool, device=DEV)
+    active[::9] = False
+    md = 0.05 + 4.0 * torch.rand(n, generator=g, device=DEV)
+    unit = torch.nn.functional.normalize
+    return [("grazing: face-plane rays", o_face, unit(d_face, dim=-1),
+             active, md),
+            ("grazing: axis-parallel rays", o_axis, d_axis, active, md),
+            ("grazing: rays from inside a group box", inside,
+             unit(d_in, dim=-1), active, md)]
+
+
 # --------------------------------------------------------------------------
 # K3's query split and the glass render's walls (phase 9;
 # scripts/time_k3_split.py runs the same against an older tree)
@@ -1376,7 +1479,8 @@ def phase8(glass, mid, soft):
     err["intersect_gather"] = max(
         compare_hits(f"{label} (K4)", soft, o, d, active, md,
                      "intersect_gather")[0]
-        for label, o, d, active, md in shadow_batches(soft, "soft-shadow"))
+        for label, o, d, active, md in (shadow_batches(soft, "soft-shadow")
+                                        + grazing_batches(soft)))
     log(8, f"K4 done; largest |t| difference per kernel {err}", t0)
     return mid_recs
 
@@ -1515,6 +1619,10 @@ def phase10(scene):
     check(launches["tile_cull"] == launches["intersect_gather"],
           "the render's K4 launches were not fed by the cull kernel")
     cull.hold_every("soft-shadow render")
+    t0 = time.perf_counter()
+    held = rec.hold_every("soft-shadow render")
+    log(10, f"every K4 launch of the render held bitwise ({held}), its "
+            f"groups tested {sum(rec.tested.values())}", t0)
     sweep_chunk(rec)
     profile_render(scene, cfg, wall2, show=("tile_cull",))
     return launches, rec, cull, img
@@ -1529,7 +1637,7 @@ def sweep_chunk(rec):
         args = max(runs, key=lambda a: int(a[4].sum()))
         c = args[2].shape[0]
         times = {chunk: round(cuda_ms(lambda: ik.intersect_gather_keys(
-            *args[:5], any_hit=any_hit, chunk=chunk), 3), 3)
+            *args[:5], any_hit=any_hit, chunk=chunk, **args.kw), 3), 3)
             for chunk in (*CHUNK_SWEEP, c)}
         mode = "any-hit" if any_hit else "nearest"
         log(10, f"K4 chunk sweep, heaviest {mode} launch "

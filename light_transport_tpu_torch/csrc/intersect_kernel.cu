@@ -24,24 +24,39 @@
 // tensor cores, TF32 or bf16 (bf16 passes put 9 % of silhouette rays on
 // the wrong triangle on the TPU).
 //
-// K4.  What bounds it is instruction throughput: each ray-triangle test
-// is ~60 FP32 instructions from registers plus its weights from shared
-// memory, and 19 scalar shared loads per test (the (C, 16, 2048) weight
-// layout) cap a 132-SM card near 1.7 tests per SM-clock.  So the weights
-// come as
-// triangle-major records (ops/intersect_kernel.cluster_records, built once
-// per scene): 20 floats a triangle, five 128-bit broadcast loads a test.
-// A block is one (ray tile, chunk of at most `chunk` admitted clusters);
-// blocks past a tile's count leave at once, so a tile that admits many
-// clusters spreads over many SMs.  Thread 0 streams the chunk's clusters
-// in 128-triangle pieces (10,240 B) through a ring of kStages
-// shared-memory stages by TMA (cp.async.bulk completing an mbarrier), so
-// piece p + 1 arrives while piece p is tested; the ring's 20 KB leave room
-// for 10 blocks (40 warps) per SM at 47 registers a thread.  Blocks merge
-// through one 64-bit atomicMin per ray on the key (order-preserving bits
-// of t) << 32 | triangle index: the lexicographic minimum of (t, index) is
-// exactly the sequential strict-< scan over ascending clusters.  The
-// caller unpacks the keys.
+// K4.  A block is one (ray tile, chunk of at most `chunk` admitted
+// clusters); blocks past a tile's count leave at once, so a tile that
+// admits many clusters spreads over many SMs.  The cull admits a cluster
+// for a whole 128-ray tile, so most of a tile's rays miss most of its
+// clusters; K4 therefore first tests each ray against the boxes of the
+// chunk's 32-triangle groups (ops/intersect_kernel.cluster_group_bounds,
+// built once per scene: cluster_bounds' arithmetic and pad over each run
+// of 32 triangles), by the cull's slab test op for op, from the ray's
+// [tmin, tmax]; a ray with an empty interval, or in any-hit mode one
+// already hit, enters nothing.  Each warp ORs its lanes' bits into one
+// word per 32 groups in shared memory.  Thread 0 streams, in order, only
+// the 128-triangle pieces (10,240 B of triangle-major records,
+// ops/intersect_kernel.cluster_records) of which some warp enters a
+// group, through a ring of kStages shared-memory stages by TMA
+// (cp.async.bulk completing an mbarrier), so piece p + 1 arrives while
+// piece p is tested; and a warp tests a group's 32 records only if one of
+// its lanes entered the group's box (the rule: a group is skipped only
+// when no lane of the warp enters its padded box within the lane's
+// interval).  A lane skips only groups whose padded box its ray does not
+// enter within its interval, by the argument that lets the cull skip a
+// cluster, applied to 32 triangles; every lane of a warp that tests a
+// group tests all 32 of its triangles in order.  So each ray's hit is
+// bitwise the sequential scan's, as before.  What bounds K4 is then the
+// issued tests (a test is ~60 FP32 instructions from registers, its
+// weights five 128-bit broadcast loads from shared memory) and the
+// streamed pieces; with `counts` non-null each warp adds the groups it
+// tested to *counts, one atomic a warp.  Beside the ring's 20 KB and the
+// group words (2 B a warp per cluster of the chunk), its 56 registers a
+// thread leave 9 resident blocks (36 warps) per SM.
+// Blocks merge through one 64-bit atomicMin per ray on the key
+// (order-preserving bits of t) << 32 | triangle index: the lexicographic
+// minimum of (t, index) is exactly the sequential strict-< scan over
+// ascending clusters.  The caller unpacks the keys.
 //
 // K3 (below 16 clusters: 49 to 7,680 triangles).  The TPU kernel ran one
 // grid step per (tile, cluster) behind a mask computed by XLA ops.  Here
@@ -98,6 +113,14 @@ constexpr int kStages = 2;
 constexpr uint32_t kPieceBytes = kPieceTris * kRecFloats * sizeof(float);
 constexpr int kRingBytes = kStages * kPieceBytes;
 constexpr long long kNoHit = 0x7fffffffffffffffLL;
+
+// K4's groups: a warp tests a group's records only if one of its lanes
+// enters the group's box
+constexpr int kGroupTris = 32;
+constexpr int kGroups = kTriTile / kGroupTris;          // a cluster's
+constexpr int kPieceGroups = kPieceTris / kGroupTris;   // a piece's
+constexpr int kWordPieces = 32 / kPieceGroups;          // pieces a word
+constexpr int kWarps = kRayTile / 32;
 
 // the cull's boxes staged per round
 constexpr int kBoxPiece = 512;
@@ -310,70 +333,149 @@ __device__ __forceinline__ bool test_record(const float4* r, const float* f,
 }
 
 // Thread 0: piece p of the chunk (cluster list[p / kPieces], its triangles
-// (p % kPieces) * kPieceTris on) into ring stage p % kStages by TMA.
-__device__ __forceinline__ void load_piece(int p, const int32_t* list,
-                                           int n_clusters,
+// (p % kPieces) * kPieceTris on) into ring stage s by TMA.
+__device__ __forceinline__ void load_piece(int p, int s, const int32_t* list,
                                            const float* __restrict__ recs,
                                            float4* ring, uint64_t* full) {
-  const int cid = list[p / kPieces];
-  if (cid < 0 || cid >= n_clusters) __trap();
-  const float* src = recs + ((size_t)cid * kTriTile +
+  const float* src = recs + ((size_t)list[p / kPieces] * kTriTile +
                              (size_t)(p % kPieces) * kPieceTris) * kRecFloats;
-  const int s = p % kStages;
   bulk_load(ring + (size_t)s * kPieceTris * kRecVecs, src, kPieceBytes,
             &full[s]);
 }
 
-// recs: (C, 512, 20) triangle-major records.  Block (tile, y) tests the
-// tile's admitted clusters y * chunk ... y * chunk + chunk - 1 and merges
-// each ray's nearest (any-hit: first) hit into keys[ray] (kNoHit on entry).
+// Per warp, the group words of a chunk of `chunk` clusters.
+__host__ __device__ __forceinline__ int group_words(int chunk) {
+  return (chunk * kGroups + 31) / 32;
+}
+
+// The group bits of piece p in word row `w` (a warp's words).
+__device__ __forceinline__ unsigned piece_groups(const unsigned* w, int p) {
+  return (w[p / kWordPieces] >> ((p % kWordPieces) * kPieceGroups)) &
+         ((1u << kPieceGroups) - 1u);
+}
+
+// The first piece after p of which some warp enters a group (n_pieces if
+// none is left).
+__device__ __forceinline__ int next_piece(const unsigned* words, int stride,
+                                          int p, int n_pieces) {
+  for (++p; p < n_pieces; ++p) {
+    unsigned any = 0u;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      any |= piece_groups(words + w * stride, p);
+    if (any) break;
+  }
+  return p;
+}
+
+// recs: (C, 512, 20) triangle-major records; g_lo, g_hi: (C, 16, 3) group
+// boxes.  Block (tile, y) tests the tile's admitted clusters y * chunk ...
+// y * chunk + chunk - 1, group by group where a lane of the warp enters
+// the group's box, and merges each ray's nearest (any-hit: first) hit into
+// keys[ray] (kNoHit on entry).  counts: null, or one int64 counter to
+// which each warp adds the groups it tested.
 __global__ void __launch_bounds__(kRayTile)
     intersect_gather_kernel(const float* __restrict__ feats,
                             const float* __restrict__ tminmax,
                             const float* __restrict__ recs,
+                            const float* __restrict__ g_lo,
+                            const float* __restrict__ g_hi,
                             const int32_t* __restrict__ ids,
                             const int32_t* __restrict__ cnt, int n_clusters,
                             int chunk, int any_hit,
-                            long long* __restrict__ keys) {
-  extern __shared__ __align__(128) float4 ring[];  // kStages pieces
+                            long long* __restrict__ keys,
+                            unsigned long long* __restrict__ counts) {
+  // kStages pieces, then kWarps rows of `stride` group words
+  extern __shared__ __align__(128) float4 ring[];
   __shared__ __align__(8) uint64_t full[kStages];
   const int tile = blockIdx.x;
   const int first = blockIdx.y * chunk;
   const int n_tile = cnt[tile];
   if (first >= n_tile) return;  // uniform: past the tile's list
-  const int n_pieces = min(chunk, n_tile - first) * kPieces;
+  const int n_cl = min(chunk, n_tile - first);
+  const int n_pieces = n_cl * kPieces;
+  const int stride = group_words(chunk);
+  unsigned* words =
+      reinterpret_cast<unsigned*>(ring + kStages * kPieceTris * kRecVecs);
   const int32_t* list = ids + (size_t)tile * n_clusters + first;
+  for (int c = threadIdx.x; c < n_cl; c += kRayTile)
+    if (list[c] < 0 || list[c] >= n_clusters) __trap();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0)
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s]);
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int p = 0; p < kStages && p < n_pieces; ++p)
-      load_piece(p, list, n_clusters, recs, ring, full);
   const size_t ray = (size_t)tile * kRayTile + threadIdx.x;
-  float f[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) f[k] = feats[ray * kFeat + k];
+  const float* fr = feats + ray * kFeat;
   const float tmin = tminmax[2 * ray];
   const float tmax = tminmax[2 * ray + 1];
+  // any-hit mode: a ray another block has already hit tests no more
+  bool done =
+      any_hit && *reinterpret_cast<volatile long long*>(keys + ray) != kNoHit;
+  {  // the group test: each warp's word of the groups its lanes enter
+    float o[3], inv[3];
+    slab_ray(fr, o, inv);
+    const bool seeks = tmin < tmax && !done;
+    const bool warp_seeks = __any_sync(0xffffffffu, seeks);
+    for (int j0 = 0; j0 < n_cl * kGroups; j0 += 32) {
+      unsigned bits = 0u;
+      if (warp_seeks) {  // uniform in the warp
+        const int jn = min(32, n_cl * kGroups - j0);
+        for (int b = 0; b < jn; ++b) {
+          const int j = j0 + b;
+          const size_t g = ((size_t)list[j / kGroups] * kGroups +
+                            j % kGroups) * 3;
+          if (seeks &&
+              slab_enters(o, inv, __ldg(g_lo + g), __ldg(g_lo + g + 1),
+                          __ldg(g_lo + g + 2), __ldg(g_hi + g),
+                          __ldg(g_hi + g + 1), __ldg(g_hi + g + 2), tmin,
+                          tmax))
+            bits |= 1u << b;
+        }
+        bits = __reduce_or_sync(0xffffffffu, bits);
+      }
+      if (lane == 0) words[warp * stride + j0 / 32] = bits;
+    }
+  }
+  __syncthreads();  // the words, and the barriers before anyone waits
+  // thread 0 keeps the next kStages entered pieces in flight: piece
+  // number q (in order of the entered) in stage q % kStages
+  int p_load = -1, k_load = 0;  // thread 0: the last piece loaded, how many
+  if (threadIdx.x == 0)
+    for (; k_load < kStages; ++k_load) {
+      p_load = next_piece(words, stride, p_load, n_pieces);
+      if (p_load >= n_pieces) break;
+      load_piece(p_load, k_load % kStages, list, recs, ring, full);
+    }
+  float f[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) f[k] = fr[k];
   float best_t = kBig;
   int best_tri = -1;
-  bool done = false;  // any-hit mode: this ray has a hit
-  for (int p = 0; p < n_pieces; ++p) {
-    const int s = p % kStages;
-    // any-hit mode: a ray another block has already hit tests no more
-    if (any_hit && !done && p % kPieces == 0)
+  int tested = 0;  // groups this warp tested (the same in each lane)
+  int cur = -1;    // the cluster of the last piece
+  int k = 0;
+  for (int p = next_piece(words, stride, -1, n_pieces); p < n_pieces;
+       p = next_piece(words, stride, p, n_pieces), ++k) {
+    const int s = k % kStages;
+    const int c = p / kPieces;
+    if (any_hit && !done && c != cur)
       done = *reinterpret_cast<volatile long long*>(keys + ray) != kNoHit;
-    mbar_wait(&full[s], (p / kStages) & 1);
-    if (!done) {
-      const float4* r = ring + (size_t)s * kPieceTris * kRecVecs;
-      const int base =
-          list[p / kPieces] * kTriTile + (p % kPieces) * kPieceTris;
+    cur = c;
+    mbar_wait(&full[s], (k / kStages) & 1);
+    const unsigned mine = piece_groups(words + warp * stride, p);
+    const float4* r = ring + (size_t)s * kPieceTris * kRecVecs;
+    const int base = list[c] * kTriTile + (p % kPieces) * kPieceTris;
+    for (int g = 0; g < kPieceGroups; ++g) {
+      // the warp skips a group none of its lanes enters, and one whose
+      // lanes all have a hit in any-hit mode
+      if (!((mine >> g) & 1u) || !__any_sync(0xffffffffu, !done)) continue;
+      ++tested;
+      if (done) continue;
 #pragma unroll 2
-      for (int k = 0; k < kPieceTris; ++k) {
+      for (int i = g * kGroupTris; i < (g + 1) * kGroupTris; ++i) {
         float t;
-        if (test_record(r + k * kRecVecs, f, tmin, tmax, t) && t < best_t) {
+        if (test_record(r + i * kRecVecs, f, tmin, tmax, t) && t < best_t) {
           best_t = t;
-          best_tri = base + k;
+          best_tri = base + i;
           if (any_hit) {
             done = true;
             break;
@@ -387,14 +489,21 @@ __global__ void __launch_bounds__(kRayTile)
       // the copies in flight must land before the block's shared memory
       // is released
       if (threadIdx.x == 0)
-        for (int q = p + 1; q < p + kStages && q < n_pieces; ++q)
+        for (int q = k + 1; q < k_load; ++q)
           mbar_wait(&full[q % kStages], (q / kStages) & 1);
       break;
     }
-    if (threadIdx.x == 0 && p + kStages < n_pieces)
-      load_piece(p + kStages, list, n_clusters, recs, ring, full);
+    if (threadIdx.x == 0 && p_load < n_pieces) {
+      p_load = next_piece(words, stride, p_load, n_pieces);
+      if (p_load < n_pieces) {
+        load_piece(p_load, k_load % kStages, list, recs, ring, full);
+        ++k_load;
+      }
+    }
   }
   if (best_tri >= 0) atomicMin(keys + ray, hit_key(best_t, best_tri));
+  if (counts != nullptr && lane == 0 && tested)
+    atomicAdd(counts, (unsigned long long)tested);
 }
 
 // ---------------------------------------------------------------------------
@@ -514,26 +623,31 @@ extern "C" int tile_cull_launch(const float* feats, const float* tminmax,
   return (int)cudaGetLastError();
 }
 
-// keys: (n_tiles * 128,) int64, kNoHit on entry.
+// keys: (n_tiles * 128,) int64, kNoHit on entry.  counts: null, or (1,)
+// int64 added to (see intersect_gather_kernel).
 extern "C" int intersect_gather_launch(const float* feats,
                                        const float* tminmax, const float* recs,
+                                       const float* g_lo, const float* g_hi,
                                        const int32_t* ids, const int32_t* cnt,
                                        int n_tiles, int n_clusters, int chunk,
                                        int any_hit, long long* keys,
-                                       void* stream) {
+                                       long long* counts, void* stream) {
   const int n_chunks = chunk > 0 ? (n_clusters + chunk - 1) / chunk : 0;
   if (chunk < 1 || n_chunks > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_tiles, n_chunks);
-  intersect_gather_kernel<<<grid, kRayTile, kRingBytes,
-                            (cudaStream_t)stream>>>(
-      feats, tminmax, recs, ids, cnt, n_clusters, chunk, any_hit, keys);
+  const size_t smem = kRingBytes + kWarps * group_words(chunk) * 4;
+  intersect_gather_kernel<<<grid, kRayTile, smem, (cudaStream_t)stream>>>(
+      feats, tminmax, recs, g_lo, g_hi, ids, cnt, n_clusters, chunk, any_hit,
+      keys, reinterpret_cast<unsigned long long*>(counts));
   return (int)cudaGetLastError();
 }
 
-// K4's resident blocks per SM at its block size and ring.
-extern "C" int intersect_gather_blocks_per_sm(int* blocks) {
+// K4's resident blocks per SM at its block size, ring and the group words
+// of `chunk` clusters a block.
+extern "C" int intersect_gather_blocks_per_sm(int chunk, int* blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, intersect_gather_kernel, kRayTile, kRingBytes);
+      blocks, intersect_gather_kernel, kRayTile,
+      kRingBytes + kWarps * group_words(chunk) * 4);
 }
 
 extern "C" const char* intersect_kernel_error_string(int err) {

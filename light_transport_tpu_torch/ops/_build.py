@@ -92,9 +92,9 @@ def load_intersect_kernel() -> ctypes.CDLL:
         lib.intersect_dense_blocks_per_sm.restype = ctypes.c_int
         lib.tile_cull_launch.argtypes = [vp] * 4 + [i] * 2 + [vp] * 4
         lib.tile_cull_launch.restype = ctypes.c_int
-        lib.intersect_gather_launch.argtypes = [vp] * 5 + [i] * 4 + [vp] * 2
+        lib.intersect_gather_launch.argtypes = [vp] * 7 + [i] * 4 + [vp] * 3
         lib.intersect_gather_launch.restype = ctypes.c_int
-        lib.intersect_gather_blocks_per_sm.argtypes = [vp]
+        lib.intersect_gather_blocks_per_sm.argtypes = [i, vp]
         lib.intersect_gather_blocks_per_sm.restype = ctypes.c_int
         lib.intersect_kernel_error_string.argtypes = [ctypes.c_int]
         lib.intersect_kernel_error_string.restype = ctypes.c_char_p

@@ -88,15 +88,17 @@ def _use_cluster_intersector(scene, coherent: bool = False) -> bool:
 
 
 def _tables(scene):
-    """The mesh's packed weights, cluster bounds and triangle-major cluster
-    records (which K3 and K4 read), built once per scene."""
+    """The mesh's packed weights, cluster bounds, triangle-major cluster
+    records (which K3 and K4 read) and 32-triangle group boxes (which K4
+    reads), built once per scene."""
     from light_transport_tpu_torch.ops import intersect_kernel as ik
 
     mesh = scene.mesh
     if "cluster" not in mesh.derived:
         w = ik.pack_tri_weights(mesh)
         mesh.derived["cluster"] = (w, ik.cluster_bounds(mesh),
-                                   ik.cluster_records(w))
+                                   ik.cluster_records(w),
+                                   ik.cluster_group_bounds(mesh))
     return mesh.derived["cluster"]
 
 
@@ -166,11 +168,11 @@ def scene_intersect(scene, origins, directions,
         )
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
-        weights, clusters, records = _tables(scene)
+        weights, clusters, records, groups = _tables(scene)
         hit = sorted_apply(
             lambda o, d, tm: _isect(
                 intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
-                t_max=tm, clusters=clusters, records=records),
+                t_max=tm, clusters=clusters, records=records, groups=groups),
             scene.mesh, origins, directions, _t_max(origins, active),
             inactive=None if active is None else ~active)
     elif _big_mesh(scene, origins):
@@ -223,12 +225,12 @@ def scene_occluded(scene, origins, directions, max_dist,
         )
         from light_transport_tpu_torch.ops.raysort import sorted_apply
 
-        weights, clusters, records = _tables(scene)
+        weights, clusters, records, groups = _tables(scene)
         occ = sorted_apply(
             lambda o, d, m: _isect(
                 intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
                 any_hit=True, max_dist=m, clusters=clusters,
-                records=records),
+                records=records, groups=groups),
             scene.mesh, origins, directions,
             _t_max(origins, active, max_dist),
             inactive=None if active is None else ~active)

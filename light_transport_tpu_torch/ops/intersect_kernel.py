@@ -21,9 +21,12 @@ spatially compact, so coherent tiles admit few clusters.
   first.  Larger meshes go through the cull kernel (``tile_cull``: each
   tile's admitted cluster ids and their count) and the gather kernel
   (K4, ``intersect_gather``) over (tile, chunk of admitted clusters)
-  blocks.  The TPU kernel capped the id list and chunked the rays for
-  its 1 MB scalar memory; the lists here live in device memory,
-  uncapped.
+  blocks.  K4 also tests each ray against the boxes of the clusters'
+  32-triangle groups (:func:`cluster_group_bounds`), and a warp skips a
+  group that none of its rays enters: it only skips work, so its hits
+  are the plain version's.  The TPU kernel capped the id list and
+  chunked the rays for its 1 MB scalar memory; the lists here live in
+  device memory, uncapped.
 * Each ray keeps the nearest hit; at equal t the lowest triangle index
   wins (the TPU kernel broke exact ties by the lowest ``tri mod 128``).
 
@@ -70,6 +73,11 @@ REC_FLOATS = 20  # a triangle's record: the 19 rows and a pad (80 B)
 GATHER_CHUNK = 4
 PIECE_TRIS = 128  # triangles of a K3 piece (10,240 B of records)
 PIECES = TRI_TILE // PIECE_TRIS
+# triangles of a K4 group: a warp tests a group's records only if one of
+# its 32 rays enters the group's box
+GROUP_TRIS = 32
+GROUPS = TRI_TILE // GROUP_TRIS
+WARP = 32  # rays of a warp
 # 128-triangle pieces per K3 block (1, 2 or 4: a block stays in one
 # cluster).  1 ran fastest of the three on the glass render's and the
 # 15-cluster batches' heaviest launches on an H100: chip_smoke.py phase 9's
@@ -123,9 +131,9 @@ def cluster_records(tri_weights: torch.Tensor) -> torch.Tensor:
     return rec.reshape(c, TRI_TILE, REC_FLOATS)
 
 
-def cluster_bounds(mesh):
-    """(C, 3) lower and upper corners of each TRI_TILE-triangle cluster's
-    box; the padding replicates the last triangle."""
+def _triangle_boxes(mesh):
+    """(T_pad, 3) lower and upper corners of each triangle, the padding
+    replicating the last triangle, and the boxes' scale-relative pad."""
     v0 = mesh.v0
     v1 = v0 + mesh.e1
     v2 = v0 + mesh.e2
@@ -142,9 +150,27 @@ def cluster_bounds(mesh):
     eps = 1e-5 * torch.maximum(
         torch.ones((), dtype=lo.dtype, device=lo.device),
         torch.maximum(lo.abs().max(), hi.abs().max()))
+    return lo, hi, eps
+
+
+def cluster_bounds(mesh):
+    """(C, 3) lower and upper corners of each TRI_TILE-triangle cluster's
+    box; the padding replicates the last triangle."""
+    lo, hi, eps = _triangle_boxes(mesh)
     c_lo = lo.reshape(-1, TRI_TILE, 3).amin(dim=1) - eps
     c_hi = hi.reshape(-1, TRI_TILE, 3).amax(dim=1) + eps
     return c_lo, c_hi
+
+
+def cluster_group_bounds(mesh):
+    """(C, GROUPS, 3) lower and upper corners of each run of GROUP_TRIS
+    consecutive triangles (K4's groups), with :func:`cluster_bounds`'
+    padding and pad: a cluster's groups together span its box exactly.
+    Built once per scene with the records."""
+    lo, hi, eps = _triangle_boxes(mesh)
+    g_lo = lo.reshape(-1, GROUPS, GROUP_TRIS, 3).amin(dim=2) - eps
+    g_hi = hi.reshape(-1, GROUPS, GROUP_TRIS, 3).amax(dim=2) + eps
+    return g_lo.contiguous(), g_hi.contiguous()
 
 
 def ray_features(origins: torch.Tensor, directions: torch.Tensor):
@@ -156,13 +182,14 @@ def ray_features(origins: torch.Tensor, directions: torch.Tensor):
                       one, zero], dim=-1)
 
 
-def tile_cluster_mask(origins, directions, tminmax, c_lo, c_hi):
-    """(n_ray_tiles, C) bool: does any ray of the tile enter the cluster's
-    box within its [t_min, t_max]?  A conservative slab test, built over
-    pieces of rays so its (rays, C, 3) temporaries stay bounded."""
+def tile_cluster_mask(origins, directions, tminmax, c_lo, c_hi,
+                      rays=RAY_TILE):
+    """(n_ray_tiles, C) bool: does any ray of the tile (``rays`` rays)
+    enter the cluster's box within its [t_min, t_max]?  A conservative
+    slab test, built over pieces of rays so its (rays, C, 3) temporaries
+    stay bounded."""
     n = origins.shape[0]
-    step = max(RAY_TILE,
-               _MASK_ELEMS // (3 * c_lo.shape[0]) // RAY_TILE * RAY_TILE)
+    step = max(rays, _MASK_ELEMS // (3 * c_lo.shape[0]) // rays * rays)
     tiny = torch.full_like(directions, 1e-20)
     inv_d = 1.0 / torch.where(directions.abs() < 1e-20,
                               torch.where(directions < 0, -tiny, tiny),
@@ -175,7 +202,7 @@ def tile_cluster_mask(origins, directions, tminmax, c_lo, c_hi):
         tn = torch.minimum(t1, t2).amax(dim=-1)
         tf = torch.maximum(t1, t2).amin(dim=-1)
         hit = (tn <= tf) & (tf >= tm[:, 0:1]) & (tn <= tm[:, 1:2])
-        out.append(hit.reshape(-1, RAY_TILE, hit.shape[-1]).any(dim=1))
+        out.append(hit.reshape(-1, rays, hit.shape[-1]).any(dim=1))
     return torch.cat(out)
 
 
@@ -354,6 +381,28 @@ def intersect_gather_split_reference(feats, tminmax, recs, ids, cnt,
     return unpack_hit_keys(keys)
 
 
+def gather_group_count(feats, tminmax, ids, cnt, g_lo, g_hi):
+    """The (warp, group) pairs K4 tests in nearest-hit mode, in plain
+    form: over each tile's admitted clusters (the first ``cnt`` of
+    ``ids``), the 32-triangle groups (``g_lo``, ``g_hi``: (C, GROUPS, 3))
+    whose box some ray of a 32-ray warp enters within a non-empty
+    interval (:func:`tile_cluster_mask`'s slab test).  Any-hit mode tests
+    at most as many (a ray already hit enters nothing).  An int64
+    scalar."""
+    n, dev = feats.shape[0], feats.device
+    c = g_lo.shape[0]
+    live = tminmax[:, 0] < tminmax[:, 1]
+    tm = torch.where(live[:, None], tminmax, float("nan"))
+    enters = tile_cluster_mask(feats[:, 6:9], feats[:, 0:3], tm,
+                               g_lo.reshape(-1, 3), g_hi.reshape(-1, 3),
+                               rays=WARP)
+    admitted = torch.zeros((n // RAY_TILE, c), dtype=torch.bool, device=dev)
+    take = torch.arange(ids.shape[1], device=dev)[None, :] < cnt[:, None]
+    admitted[torch.nonzero(take, as_tuple=True)[0], ids[take].long()] = True
+    per_warp = admitted.repeat_interleave(RAY_TILE // WARP, dim=0)
+    return (enters.reshape(-1, c, GROUPS) & per_warp[:, :, None]).sum()
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
@@ -477,15 +526,23 @@ def tile_cull(feats, tminmax, c_lo, c_hi, counts=None):
 
 
 def intersect_gather_keys(feats, tminmax, recs, ids, cnt, any_hit=False,
-                          chunk=None):
+                          chunk=None, *, groups, counts=None):
     """K4's launch: each ray's :func:`hit_keys` key (``NO_HIT_KEY`` where
     it has none), from blocks of ``chunk`` admitted clusters (default
-    :data:`GATHER_CHUNK`).  CUDA tensors only."""
+    :data:`GATHER_CHUNK`); ``groups`` the (C, GROUPS, 3) group boxes of
+    :func:`cluster_group_bounds`.  ``counts``, if given, a ``(1,)``
+    int64 tensor on the rays' device, receives the (warp, group) pairs
+    the kernel tested (added to it by the kernel).  CUDA tensors only."""
     dev = feats.device
     tiles, c = _tiles("intersect_gather", feats, tminmax), recs.shape[0]
     _check(recs, torch.float32, (c, TRI_TILE, REC_FLOATS), "records", dev)
+    g_lo, g_hi = groups
+    _check(g_lo, torch.float32, (c, GROUPS, 3), "g_lo", dev)
+    _check(g_hi, torch.float32, (c, GROUPS, 3), "g_hi", dev)
     _check(ids, torch.int32, (tiles, c), "ids", dev)
     _check(cnt, torch.int32, (tiles,), "cnt", dev)
+    if counts is not None:
+        _check(counts, torch.int64, (1,), "counts", dev)
     if recs.data_ptr() % 16:  # the bulk copies' source
         raise ValueError("records: must start on a 16-byte boundary")
     chunk = GATHER_CHUNK if chunk is None else int(chunk)
@@ -495,18 +552,32 @@ def intersect_gather_keys(feats, tminmax, recs, ids, cnt, any_hit=False,
                       device=dev)
     if tiles:
         _run("intersect_gather", dev, _ptr(feats), _ptr(tminmax), _ptr(recs),
-             _ptr(ids), _ptr(cnt), tiles, c, chunk, int(any_hit), _ptr(keys))
+             _ptr(g_lo), _ptr(g_hi), _ptr(ids), _ptr(cnt), tiles, c, chunk,
+             int(any_hit), _ptr(keys),
+             ctypes.c_void_p(None if counts is None else counts.data_ptr()))
     return keys
 
 
-def intersect_gather(feats, tminmax, recs, ids, cnt, any_hit=False):
+def intersect_gather(feats, tminmax, recs, ids, cnt, any_hit=False, *,
+                     groups=None, counts=None):
     """K4: on the card the gather kernel, its keys unpacked; for CPU
     tensors :func:`intersect_gather_reference`.  Returns (best_t,
-    best_tri) per padded ray."""
-    if _device_type(feats, "intersect_gather") == "cpu":
+    best_tri) per padded ray.  ``groups``: the (C, GROUPS, 3) group boxes
+    (:func:`cluster_group_bounds`; the card needs them).  ``counts``, if
+    given, a ``(1,)`` int64 tensor on the rays' device, receives the
+    (warp, group) pairs tested: the kernel's own count on the card,
+    :func:`gather_group_count` for CPU tensors."""
+    cpu = _device_type(feats, "intersect_gather") == "cpu"
+    if groups is None and (counts is not None or not cpu):
+        raise ValueError("intersect_gather: K4 and its count need the "
+                         "group boxes (cluster_group_bounds)")
+    if cpu:
+        if counts is not None:
+            counts += gather_group_count(feats, tminmax, ids, cnt, *groups)
         return intersect_gather_reference(feats, tminmax, recs, ids, cnt)
-    return unpack_hit_keys(intersect_gather_keys(feats, tminmax, recs, ids,
-                                                 cnt, any_hit))
+    return unpack_hit_keys(intersect_gather_keys(
+        feats, tminmax, recs, ids, cnt, any_hit, groups=groups,
+        counts=counts))
 
 
 def _blocks_per_sm(name, *args) -> int:
@@ -521,8 +592,9 @@ def _blocks_per_sm(name, *args) -> int:
 
 
 def gather_blocks_per_sm() -> int:
-    """K4's resident blocks per SM (CUDA's occupancy calculator)."""
-    return _blocks_per_sm("intersect_gather")
+    """K4's resident blocks per SM at :data:`GATHER_CHUNK` clusters a
+    block (CUDA's occupancy calculator)."""
+    return _blocks_per_sm("intersect_gather", GATHER_CHUNK)
 
 
 def dense_blocks_per_sm(pieces=None) -> int:
@@ -535,12 +607,14 @@ def dense_blocks_per_sm(pieces=None) -> int:
 def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
                           mesh, tri_weights=None, t_min=1e-5,
                           t_max=float("inf"), any_hit: bool = False,
-                          max_dist=None, clusters=None, records=None):
+                          max_dist=None, clusters=None, records=None,
+                          groups=None):
     """Nearest hit (a :class:`Hit`) or, with ``any_hit``, a bool
     occlusion mask against ``max_dist``; the counterpart of JAX's
-    function of the same name.  ``tri_weights``, ``clusters`` and
-    ``records`` default to :func:`pack_tri_weights`,
-    :func:`cluster_bounds` and :func:`cluster_records` of ``mesh``."""
+    function of the same name.  ``tri_weights``, ``clusters``,
+    ``records`` and ``groups`` default to :func:`pack_tri_weights`,
+    :func:`cluster_bounds`, :func:`cluster_records` and
+    :func:`cluster_group_bounds` of ``mesh``."""
     if tri_weights is None:
         tri_weights = pack_tri_weights(mesh)
     c_lo, c_hi = cluster_bounds(mesh) if clusters is None else clusters
@@ -558,11 +632,14 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     if records is None:
         records = cluster_records(tri_weights)
     if tri_weights.shape[2] // TRI_TILE >= GATHER_MIN_CLUSTERS:
+        if groups is None:
+            groups = cluster_group_bounds(mesh)
+        acc = profiling.cull_counts("any" if any_hit else "nearest", dev)
         ids, cnt = tile_cull(feats, tminmax, c_lo, c_hi,
-                             counts=profiling.cull_counts(
-                                 "any" if any_hit else "nearest", dev))
-        best_t, best_tri = intersect_gather(feats, tminmax, records, ids, cnt,
-                                            any_hit)
+                             counts=None if acc is None else acc[:2])
+        best_t, best_tri = intersect_gather(
+            feats, tminmax, records, ids, cnt, any_hit, groups=groups,
+            counts=None if acc is None else acc[2:])
         best_t, best_tri = best_t[:n], best_tri[:n]
         if any_hit:
             return best_tri >= 0

@@ -34,13 +34,16 @@ beside the device's events:
   nearest-hit and any-hit queries;
 - ``live_rays.nearest``, ``live_rays.any``: the rays of those queries with
   a non-empty interval (``t_max > t_min``);
+- ``groups.nearest``, ``groups.any``: the (32-ray warp, 32-triangle
+  group) pairs K4 tested over those queries, each warp skipping the
+  groups none of its rays enters;
 - ``bounce_lanes``: the lane width of each bounce, added up.
 
-The cull kernel adds its counts to a device accumulator itself, so a
-traced frame launches no extra kernel and reads nothing back; counts
-made outside a frame are dropped.  With tracing off a span or counter
-site costs one read of the profiler's flag: no range, no tensor, no
-launch, no readback.
+The cull kernel and K4 add their counts to a device accumulator
+themselves, so a traced frame launches no extra kernel and reads nothing
+back; counts made outside a frame are dropped.  With tracing off a span
+or counter site costs one read of the profiler's flag: no range, no
+tensor, no launch, no readback.
 """
 
 from __future__ import annotations
@@ -147,12 +150,14 @@ def trace(logdir: Optional[str] = None):
 # ---------------------------------------------------------------------------
 
 FRAME_LOG_LEN = 64  # frames the log keeps
-QUERY_KINDS = ("nearest", "any")  # rows of the cull's accumulator
+QUERY_KINDS = ("nearest", "any")  # rows of the intersector's accumulator
+# its columns: written by the cull (the first two) and by K4
+COUNTS = ("pairs", "live_rays", "groups")
 
 _NO_SPAN = contextlib.nullcontext()
 _frame_log = collections.deque(maxlen=FRAME_LOG_LEN)
 _open_frame = None  # the counter record of the frame being rendered
-_accumulators = {}  # device -> the cull's (2, 2) int64 accumulator
+_accumulators = {}  # device -> the (kinds, counts) int64 accumulator
 
 
 def tracing() -> bool:
@@ -184,10 +189,10 @@ def spanned(name: str):
 
 
 class _FrameCounts:
-    """One frame's counters: host ints, and the cull's accumulator with its
-    snapshots at the frame's first cluster query and at its close (the
-    accumulator is never zeroed: a frame's counts are the difference,
-    modulo 2^64, so counting costs no fill kernel)."""
+    """One frame's counters: host ints, and the intersector's accumulator
+    with its snapshots at the frame's first cluster query and at its
+    close (the accumulator is never zeroed: a frame's counts are the
+    difference, modulo 2^64, so counting costs no fill kernel)."""
 
     def __init__(self):
         self.bounce_lanes = 0
@@ -199,13 +204,15 @@ class _FrameCounts:
 
     def read(self) -> dict:
         out = {"bounce_lanes": self.bounce_lanes}
-        diff = [[0, 0], [0, 0]]
+        kinds, cols = len(QUERY_KINDS), len(COUNTS)
+        diff = [[0] * cols for _ in range(kinds)]
         if self.acc is not None:
             s, e = self.start.tolist(), self.end.tolist()
-            diff = [[(e[k][i] - s[k][i]) % (1 << 64) for i in range(2)]
-                    for k in range(2)]
+            diff = [[(e[k][i] - s[k][i]) % (1 << 64) for i in range(cols)]
+                    for k in range(kinds)]
         for k, kind in enumerate(QUERY_KINDS):
-            out[f"pairs.{kind}"], out[f"live_rays.{kind}"] = diff[k]
+            for i, name in enumerate(COUNTS):
+                out[f"{name}.{kind}"] = diff[k][i]
         return out
 
 
@@ -228,9 +235,11 @@ def frame():
 
 
 def cull_counts(kind: str, device) -> Optional[torch.Tensor]:
-    """The ``(2,)`` int64 accumulator (admitted pairs, live rays) of the
-    open frame's ``kind`` queries on ``device``, for the cull to add to;
-    None while tracing is off, outside a frame, or on a second device."""
+    """The ``(3,)`` int64 accumulator (admitted pairs, live rays, tested
+    groups: :data:`COUNTS`) of the open frame's ``kind`` queries on
+    ``device``, for the cull (the first two) and K4 (the third) to add
+    to; None while tracing is off, outside a frame, or on a second
+    device."""
     if not tracing() or _open_frame is None:
         return None
     rec = _open_frame
@@ -238,8 +247,8 @@ def cull_counts(kind: str, device) -> Optional[torch.Tensor]:
         device = torch.device(device)
         acc = _accumulators.get(device)
         if acc is None:
-            acc = torch.empty((len(QUERY_KINDS), 2), dtype=torch.int64,
-                              device=device)
+            acc = torch.empty((len(QUERY_KINDS), len(COUNTS)),
+                              dtype=torch.int64, device=device)
             _accumulators[device] = acc
         rec.acc, rec.start = acc, acc.clone()
     elif rec.acc.device != torch.device(device):

@@ -18,6 +18,9 @@ difference:
   accumulator's change over the call) equal torch's own sums on the
   call's output and operands: ``cnt.sum()`` and the rays with
   ``t_max > t_min``;
+- traced, every call of K4 gets one too, and its count of the groups it
+  tested equals the plain count (``ik.gather_group_count``) in a
+  nearest-hit query and is at most that in an any-hit query;
 - the frame log's record equals those sums by query kind, and its
   ``bounce_lanes`` the lane widths of the frame's bounces.
 
@@ -51,17 +54,18 @@ def check(cond, what):
 
 
 class Calls:
-    """``ik.intersect_rays_pallas``, ``ik.tile_cull`` and
-    ``pt._bounce`` wrapped while installed: each cull call's query kind,
-    accumulator, its change over the call and torch's sums, and each
-    bounce's lane width."""
+    """``ik.intersect_rays_pallas``, ``ik.tile_cull``,
+    ``ik.intersect_gather`` and ``pt._bounce`` wrapped while installed:
+    each cull and K4 call's query kind, accumulator, its change over the
+    call and the plain sums, and each bounce's lane width."""
 
     def __init__(self):
-        self.kind, self.culls, self.lanes = None, [], []
+        self.kind, self.culls, self.gathers, self.lanes = None, [], [], []
 
     def __enter__(self):
-        self.saved = (ik.intersect_rays_pallas, ik.tile_cull, pt._bounce)
-        pallas, cull, bounce = self.saved
+        self.saved = (ik.intersect_rays_pallas, ik.tile_cull,
+                      ik.intersect_gather, pt._bounce)
+        pallas, cull, gather, bounce = self.saved
 
         def pallas_kind(*a, any_hit=False, **kw):
             self.kind = "any" if any_hit else "nearest"
@@ -77,17 +81,31 @@ class Calls:
                                want))
             return ids, cnt
 
+        def gather_counted(feats, tminmax, recs, ids, cnt, any_hit=False,
+                           **kw):
+            counts = kw.get("counts")
+            before = None if counts is None else counts.clone()
+            out = gather(feats, tminmax, recs, ids, cnt, any_hit, **kw)
+            plain = ik.gather_group_count(feats, tminmax, ids, cnt,
+                                          *kw["groups"])
+            self.gathers.append((self.kind, counts is not None,
+                                 None if counts is None else counts - before,
+                                 int(plain)))
+            return out
+
         def bounce_width(scene, cfg, state, *a, **kw):
             self.lanes.append(state.alive.shape[0])
             return bounce(scene, cfg, state, *a, **kw)
 
         ik.intersect_rays_pallas = pallas_kind
         ik.tile_cull = cull_counted
+        ik.intersect_gather = gather_counted
         pt._bounce = bounce_width
         return self
 
     def __exit__(self, *exc):
-        ik.intersect_rays_pallas, ik.tile_cull, pt._bounce = self.saved
+        (ik.intersect_rays_pallas, ik.tile_cull, ik.intersect_gather,
+         pt._bounce) = self.saved
 
 
 def one_cell(reg, cell, seed, dev):
@@ -99,8 +117,8 @@ def one_cell(reg, cell, seed, dev):
     with Calls() as off:
         plain = sess.job(seed)
     torch.cuda.synchronize()
-    check(off.culls and not any(c[1] for c in off.culls),
-          f"{cell}: an untraced cull got an accumulator")
+    check(off.culls and not any(c[1] for c in off.culls + off.gathers),
+          f"{cell}: an untraced cull or K4 got an accumulator")
     n_log = len(profiling.frames())
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -117,6 +135,13 @@ def one_cell(reg, cell, seed, dev):
     for k, (g, w) in enumerate(zip(got, want)):
         check(g == w, f"{cell}: cull call {k} ({on.culls[k][0]}) counted "
                       f"{g}, torch's sums {w}")
+    check(len(on.gathers) == len(on.culls) and all(c[1] for c in on.gathers),
+          f"{cell}: a traced K4 got no accumulator")
+    groups = [int(c[2]) for c in on.gathers]
+    for k, (kind, _, _, plain) in enumerate(on.gathers):
+        check(groups[k] == plain if kind == "nearest" else groups[k] <= plain,
+              f"{cell}: K4 call {k} ({kind}) tested {groups[k]} groups, "
+              f"the plain count {plain}")
     log = profiling.frames()
     check(len(log) == min(n_log + 1, profiling.FRAME_LOG_LEN),
           f"{cell}: the traced frame logged {len(log) - n_log} records")
@@ -124,9 +149,11 @@ def one_cell(reg, cell, seed, dev):
     for kind in profiling.QUERY_KINDS:
         pairs = sum(w[0] for c, w in zip(on.culls, want) if c[0] == kind)
         live = sum(w[1] for c, w in zip(on.culls, want) if c[0] == kind)
-        check((rec[f"pairs.{kind}"], rec[f"live_rays.{kind}"])
-              == (pairs, live),
-              f"{cell}: the {kind} record {rec} against sums {pairs}, {live}")
+        tested = sum(g for c, g in zip(on.gathers, groups) if c[0] == kind)
+        check((rec[f"pairs.{kind}"], rec[f"live_rays.{kind}"],
+               rec[f"groups.{kind}"]) == (pairs, live, tested),
+              f"{cell}: the {kind} record {rec} against sums {pairs}, "
+              f"{live}, {tested}")
     check(rec["bounce_lanes"] == sum(on.lanes),
           f"{cell}: bounce_lanes {rec['bounce_lanes']} against "
           f"{sum(on.lanes)}")
@@ -135,7 +162,11 @@ def one_cell(reg, cell, seed, dev):
     return {"cell": cell, "seed": seed, "record": rec,
             "calls": [[c[0]] + w for c, w in zip(on.culls, want)],
             "widths": on.lanes,
+            "groups": [[c[0], g, c[3]] for c, g in zip(on.gathers, groups)],
             "isect_tests_per_ray": pairs * ik.RAY_TILE * ik.TRI_TILE / live,
+            "isect_issued_tests_per_ray": (
+                (rec["groups.nearest"] + rec["groups.any"]) * 32
+                * ik.GROUP_TRIS / live),
             "live_lane_pct": 100.0 * rec["live_rays.nearest"]
             / rec["bounce_lanes"],
             "images_bitwise": True}

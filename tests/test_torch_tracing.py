@@ -15,7 +15,8 @@ plain version; frames are 8x8x1 at depth 2.  Checked:
 - the plain cull's counts are the sum of ``cnt`` and the rays with
   ``t_max > t_min``, dead and padded lanes included;
 - one frame record a traced ``api.render``, at most ``FRAME_LOG_LEN`` kept,
-  its counters equal to sums over the cull's calls.
+  its counters equal to sums over the cull's and K4's calls (K4's groups
+  tested: the plain count, ``gather_group_count``).
 """
 
 import dataclasses
@@ -196,8 +197,9 @@ def test_frame_log(scene, monkeypatch):
     """One record a traced api.render; its counters the sums over the
     cull's calls by query kind, and the lane widths of its bounces; the
     log keeps the last FRAME_LOG_LEN."""
-    kind, sums = [None], {}
+    kind, sums, groups = [None], {}, {}
     real_pallas, real_cull = ik.intersect_rays_pallas, ik.tile_cull
+    real_gather = ik.intersect_gather
 
     def pallas(*a, any_hit=False, **kw):
         kind[0] = "any" if any_hit else "nearest"
@@ -210,11 +212,18 @@ def test_frame_log(scene, monkeypatch):
                          r + int((tminmax[:, 1] > tminmax[:, 0]).sum()))
         return out
 
+    def gather(feats, tminmax, recs, ids, cnt, any_hit=False, **kw):
+        groups[kind[0]] = groups.get(kind[0], 0) + int(
+            ik.gather_group_count(feats, tminmax, ids, cnt, *kw["groups"]))
+        return real_gather(feats, tminmax, recs, ids, cnt, any_hit, **kw)
+
     monkeypatch.setattr(ik, "intersect_rays_pallas", pallas)
     monkeypatch.setattr(ik, "tile_cull", cull)
+    monkeypatch.setattr(ik, "intersect_gather", gather)
     before = len(profiling.frames())
     for compact in (False, True):
         sums.clear()
+        groups.clear()
         cfg = dataclasses.replace(CFG, compact_tail=compact)
         profiled(lambda: api.render(scene, cfg, seed=11))
         log = profiling.frames()
@@ -223,7 +232,10 @@ def test_frame_log(scene, monkeypatch):
         assert set(sums) == {"nearest", "any"}
         for k, (pairs, live) in sums.items():
             assert (rec[f"pairs.{k}"], rec[f"live_rays.{k}"]) == (pairs, live)
+            assert rec[f"groups.{k}"] == groups[k]
         assert rec["pairs.nearest"] > 0 and rec["live_rays.any"] > 0
+        # each tested group a warp's 32 x 32 tests, fewer than admitted
+        assert 0 < rec["groups.nearest"] * 32 < rec["pairs.nearest"] * 128
         assert rec["bounce_lanes"] == CFG.max_depth * 64
 
     def frames_only():
@@ -235,4 +247,5 @@ def test_frame_log(scene, monkeypatch):
     log = profiling.frames()
     assert len(log) == profiling.FRAME_LOG_LEN
     assert log[-1] == {"bounce_lanes": 0, "pairs.nearest": 0, "pairs.any": 0,
-                       "live_rays.nearest": 0, "live_rays.any": 0}
+                       "live_rays.nearest": 0, "live_rays.any": 0,
+                       "groups.nearest": 0, "groups.any": 0}
