@@ -8,7 +8,9 @@ axis, so that both packages round alike.
 
 from __future__ import annotations
 
+import collections
 import math
+import threading
 
 import torch
 
@@ -23,6 +25,51 @@ PI_OVER_2 = math.pi / 2
 PI_OVER_4 = math.pi / 4
 
 _LUMA = (0.2126, 0.7152, 0.0722)
+
+# the keys device_const keeps: a path-traced frame uses six (the screen
+# bounds, the pixel count less one, the intervals' ends, the luma weights)
+CONST_CACHE_SIZE = 128
+_CONSTS: collections.OrderedDict = collections.OrderedDict()
+_CONSTS_LOCK = threading.Lock()
+
+
+def _exact(v):
+    """``v`` as a key that ``==`` cannot blur: 0.0 and -0.0 differ, a NaN
+    matches itself, a float32 and a float of one value differ."""
+    if isinstance(v, tuple):
+        return tuple(map(_exact, v))
+    return type(v), repr(v)
+
+
+def device_const(values, dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(values, dtype=dtype, device=device)`` for a
+    Python number or tuple of numbers, built on the first call per
+    ``(values, dtype, device)`` and the same tensor object after it.
+
+    On the card, building it is a pageable host-to-device copy, after
+    which the host waits for every kernel queued before it; the cache
+    pays that once per key, not once per call.  The tensor is shared by
+    every caller: read it, index it, ``expand`` it or pass it to
+    out-of-place ops, and never write it in place.  The
+    ``CONST_CACHE_SIZE`` keys used last are kept.  A tensor ``values``
+    passes through ``torch.as_tensor`` uncached (no copy when it already
+    has the dtype and device)."""
+    if isinstance(values, torch.Tensor):
+        return torch.as_tensor(values, dtype=dtype, device=device)
+    key = (_exact(values), dtype, device)
+    with _CONSTS_LOCK:
+        t = _CONSTS.get(key)
+        if t is None:
+            # an inference tensor could not be saved for another
+            # caller's backward pass
+            with torch.inference_mode(False):
+                t = torch.as_tensor(values, dtype=dtype, device=device)
+            _CONSTS[key] = t
+            if len(_CONSTS) > CONST_CACHE_SIZE:
+                _CONSTS.popitem(last=False)
+        else:
+            _CONSTS.move_to_end(key)
+    return t
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -84,5 +131,4 @@ def to_world(local: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.709 luma; used for Russian-roulette survival weighting."""
-    w = torch.tensor(_LUMA, dtype=rgb.dtype, device=rgb.device)
-    return dot(rgb, w)
+    return dot(rgb, device_const(_LUMA, rgb.dtype, rgb.device))

@@ -501,10 +501,10 @@ def _linspace(start: float, stop: float, num: int, like: torch.Tensor):
     at most one ulp of the screen's extent."""
     kw = dict(dtype=like.dtype, device=like.device)
     if num == 1:
-        return torch.tensor([start], **kw)
-    s = torch.arange(num - 1, **kw) / torch.tensor(float(num - 1), **kw)
-    start_t = torch.tensor(start, **kw)
-    stop_t = torch.tensor(stop, **kw)
+        return lm.device_const((start,), **kw)
+    s = torch.arange(num - 1, **kw) / lm.device_const(float(num - 1), **kw)
+    start_t = lm.device_const(start, **kw)
+    stop_t = lm.device_const(stop, **kw)
     out = start_t * (1.0 - s) + stop_t * s
     return torch.cat([out, stop_t[None]])
 

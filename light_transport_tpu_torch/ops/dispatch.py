@@ -57,6 +57,7 @@ from typing import Optional
 
 import torch
 
+from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.ops import intersect
 from light_transport_tpu_torch.utils import profiling
 
@@ -105,8 +106,7 @@ def _tables(scene):
 def _t_max(origins, active, bound=float("inf")):
     """Per-ray upper bound: ``bound`` where active, -inf (dead) elsewhere."""
     n = origins.shape[0]
-    t = torch.as_tensor(bound, dtype=origins.dtype,
-                        device=origins.device).expand(n)
+    t = lm.device_const(bound, origins.dtype, origins.device).expand(n)
     return t if active is None else torch.where(active, t, float("-inf"))
 
 

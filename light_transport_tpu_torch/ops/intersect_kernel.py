@@ -623,8 +623,8 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     n_pad = -(-n // RAY_TILE) * RAY_TILE
     t_hi = max_dist if (any_hit and max_dist is not None) else t_max
     tminmax = torch.stack(
-        [torch.as_tensor(t_min, dtype=dt, device=dev).expand(n),
-         torch.as_tensor(t_hi, dtype=dt, device=dev).expand(n)], dim=-1)
+        [lm.device_const(t_min, dt, dev).expand(n),
+         lm.device_const(t_hi, dt, dev).expand(n)], dim=-1)
     feats = ray_features(origins, directions)
     if n_pad != n:
         feats = torch.cat([feats, feats.new_zeros((n_pad - n, 16))])
