@@ -60,18 +60,18 @@ script exits non-zero without the final result line):
      staged per block; one wavefront query under torch's sync debug mode
      "error" (no host sync between its passes) and the queued driver's
      syncs counted; the dispatch of that scene without treelet tables
-     (one K5 launch per query) and without a BVH (refused on the card)
+     (one K5 launch per query) and without a BVH (refused on the card);
+     K5r's kernel-table entry from the wavefront driver on the bounce-1
+     rays' nearest-hit query (its heaviest launch re-run through the
+     plain walk from the lane state it started from, its device time
+     under the profiler): no render reaches K5r
  12. big-mesh render main path: that scene at 256x256, 2 spp, depth 3
-     through the dispatch's default route (every query one sorted K5
-     launch, or the camera rays through K5 and the bounce and shadow
-     rays through the K5r wavefront), its launches counted from 0; then
-     both routes rendered in turns (wavefront, single, single,
-     wavefront), each turn's image bitwise the main path's, with its
-     second-call wall, host syncs, device busy, launches and device time
-     by kernel; the heaviest K5 launch (single route) and K5r launch
-     (wavefront route, from the lane state it started from) re-run
-     through the plain walk, K5's lone slowest ray timed; a subset of
-     the main path's lanes re-traced through the plain walk, and a
+     through the dispatch's one route (every query one sorted K5
+     launch), its launches counted from 0 (K5 only); two more turns, each
+     image bitwise the first, with its second-call wall, host syncs,
+     device busy, launches and device time by kernel; the heaviest K5
+     launch of a render re-run through the plain walk; a subset of the
+     main path's lanes re-traced through the plain walk, and a
      profile
  13. the feature probes P1-P10 (csrc/probe_kernels.cu): the entry point
      of ops/feature_probes.py runs each in a subprocess of its own (its
@@ -167,12 +167,12 @@ script exits non-zero without the final result line):
      box and on glass at 8 spp, and 2,048 glass lanes' scores on the
      card against the CPU's and exact against fd (18f); after 17's big
      mesh, BDPT on it through K5 (18e: a crop bitwise the plain walk)
- 19. the front ends (scripts/smoke_phase19.py runs it alone): after 18,
+ 19. the front ends (scripts/smoke_phase.py 19 runs it alone): after 18,
      render_bdpt_sharded at 1, 2 and 3 shards (19a), the CLI (19b), the
      soft-shadow sphere through an OBJ file (19c), the GUI server (19d)
      and the profiling helpers (19e)
  20. the glossy BSDF, the emission modes, the surface detectors and the
-     example drivers (scripts/smoke_phase20.py runs it alone), after 19:
+     example drivers (scripts/smoke_phase.py 20 runs it alone), after 19:
      examples/glossy_mis.py's plate (shininess 400) under
      emission_mode nee, mis and always, card against CPU; the glass
      preset with GLOSSY_MAT walls through K3 (every launch held bitwise,
@@ -185,9 +185,9 @@ script exits non-zero without the final result line):
      CPU's, coplanar ties counted (20b); every examples_torch driver's
      main() at the JAX drivers' sizes, photon_mcml at 1e5 photons a run
      (20c: JSON lines, walls, K3 and K4 launches)
- 21. tail compaction (RenderConfig.compact_tail; scripts/smoke_phase21.py
-     runs it alone), after 20: each scene's lanes traced at full width and
-     by trace_paths_compact, every lane bitwise, the widths by bounce the
+ 21. tail compaction (RenderConfig.compact_tail; scripts/smoke_phase.py
+     21 runs it alone), after 20: each scene's lanes traced at full width
+     and by trace_paths_compact, every lane bitwise, the widths by bounce the
      halving rule on the live counts, the live share per segment,
      launches and CUDA-event ms by kernel and width; then render_image
      and api.render with compact_tail=True, first and second walls, host
@@ -199,10 +199,9 @@ script exits non-zero without the final result line):
      with and without the flag), the soft-shadow scene at depth 8 through
      the cull kernel and K4 (21c: K4 by width, the crop's lanes live after
      the first shrink bitwise the plain intersector); after 18's big
-     mesh, that scene at depth 8 through K5 (21d) and one compacted
-     render on the K5r wavefront route, bitwise
+     mesh, that scene at depth 8 through K5 (21d)
  22. the split tracer's stack_size and max_iters and the Whitted queue's
-     weight_cutoff (scripts/smoke_phase22.py runs it alone), after 21c:
+     weight_cutoff (scripts/smoke_phase.py 22 runs it alone), after 21c:
      glass 100x100x16 at depth 8 through trace_paths_split at stack_size
      1, 2 and the default (22a: iterations, K3 launches, the wall; a
      second run bitwise the first with every K3 launch held bitwise
@@ -1800,11 +1799,10 @@ def big_mesh_batches(scene, cfg):
 
 
 def sorted_single(mesh):
-    """The dispatch's single-launch route (ops/dispatch._bvh_query with
-    TREELET_WAVEFRONT off) as a driver: ops/raysort.sorted_apply around
-    one K5 launch, the lanes whose t_max is -inf given to the sort as
-    inactive, as the dispatch gives them; the per-ray visits come back
-    through the sort beside the hits."""
+    """The dispatch's treelet route (ops/dispatch._query) as a driver:
+    ops/raysort.sorted_apply around one K5 launch, the lanes whose t_max
+    is -inf given to the sort as inactive, as the dispatch gives them;
+    the per-ray visits come back through the sort beside the hits."""
     def run(o, d, tables, t_max, any_hit=False, with_stats=False):
         def one(o_, d_, t_):
             hit, stats = tk.intersect_bvh_treelet(
@@ -1834,7 +1832,11 @@ def log_k5(phase, label, rec):
 
 
 def phase11(scene, cfg):
-    """K5 and K5r against the plain walk on the big scene's own rays."""
+    """K5 and K5r against the plain walk on the big scene's own rays.
+    Returns K5r's numbers for the kernel table, from the wavefront driver
+    on the bounce-1 rays' nearest-hit query (no render reaches K5r): its
+    launches, its recorder and its device ms a launch under the
+    profiler."""
     tables = scene.treelet
     t0 = time.perf_counter()
     (o, d, active), batches = big_mesh_batches(scene, cfg)
@@ -1850,10 +1852,7 @@ def phase11(scene, cfg):
     drivers = {
         "single": tk.intersect_bvh_treelet,
         "sorted single": sorted_single(scene.mesh),
-        "wavefront": functools.partial(
-            tk.intersect_bvh_treelet_wavefront,
-            loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
-            max_passes=dispatch.WAVEFRONT_MAX_PASSES),
+        "wavefront": tk.intersect_bvh_treelet_wavefront,
         "queued": tk.intersect_bvh_treelet_queued,
     }
     plain_ms = {}
@@ -1902,6 +1901,18 @@ def phase11(scene, cfg):
                                            any_hit=any_hit, with_stats=True)
             same_hits(f"{label}, {mode}, wavefront (counted)", got, want)
             log_staging(rec, cfg_k)
+            if (label, any_hit) == ("bounce-1 rays", False):
+                k5r = rec
+                _, _, rows = device_profile(lambda: drivers["wavefront"](
+                    bo, bd, tables, t_max=t_hi))
+                ms, c = (sum(x) for x in zip(*(
+                    v for key, v in rows.items()
+                    if kernel_category(key) == "K5r")))
+                k5r_prof_ms = ms / max(c, 1)
+                log(11, f"{label}, {mode}: treelet_resume under the "
+                        f"profiler (wavefront driver): {c} launches, "
+                        f"{k5r_prof_ms:.4f} ms per launch ({ms:.3f} ms in "
+                        f"all)")
     check_no_sync(batches, tables)
     # a BVH without tables (with_bvh(treelet=False)) walks through one K5
     # launch per query; a big mesh without a BVH raises on the card
@@ -1932,6 +1943,7 @@ def phase11(scene, cfg):
     log(11, "without tables: one K5 launch per query, bitwise equal to the "
             "plain walk; without a BVH: refused")
     log(11, "K5 and K5r done", t0)
+    return len(k5r.events), k5r, k5r_prof_ms
 
 
 def lanes_copy(lanes):
@@ -1989,9 +2001,7 @@ def check_no_sync(batches, tables):
     label, bo, bd, t_near, _, act = batches[1]
     t_hi = torch.where(act, t_near, float("-inf"))
     fn = functools.partial(
-        tk.intersect_bvh_treelet_wavefront, bo, bd, tables, t_max=t_hi,
-        loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
-        max_passes=dispatch.WAVEFRONT_MAX_PASSES)
+        tk.intersect_bvh_treelet_wavefront, bo, bd, tables, t_max=t_hi)
     fn()
     torch.cuda.synchronize()
     before = tk.LAUNCHES["treelet_resume"]
@@ -2144,14 +2154,15 @@ class TreeletRecorder:
         bound = self.bound(counts[k], rays)
         old = self.bound(counts[k], rays, PEAK_FP32)[0]
         mode = "any hit" if args[5 if self.resume else 2] else "nearest"
-        log(12, f"{self.name}, heaviest launch of the render ({mode}, "
-                f"{rays} rays, {nodes} node visits ({smem} from shared "
-                f"memory, {adjacent} to the adjacent record), {leaves} leaf "
-                f"visits, "
-                f"{tris} triangle tests, {staged} treelets staged): bitwise "
-                f"equal to the plain walk; kernel {ms:.4f} ms, plain "
-                f"{ms_p:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}; at the "
-                f"data sheet's FP32 rate {old:.4f} ms)")
+        # K5's launches are phase 12's render, K5r's phase 11's query
+        log(11 if self.resume else 12,
+            f"{self.name}, heaviest launch recorded ({mode}, {rays} rays, "
+            f"{nodes} node visits ({smem} from shared memory, {adjacent} to "
+            f"the adjacent record), {leaves} leaf visits, {tris} triangle "
+            f"tests, {staged} treelets staged): bitwise equal to the plain "
+            f"walk; kernel {ms:.4f} ms, plain {ms_p:.1f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}; at the data sheet's FP32 rate "
+            f"{old:.4f} ms)")
         if not self.resume:
             self.k5_diagnostic(args, counts[k], int(want[3].max()), ms)
         return ms, ms_p, bound, counts[k], err
@@ -2226,23 +2237,6 @@ class TreeletRecorder:
                    zip(counts, self.launched)) / max(len(counts), 1)
 
 
-# the dispatch's two routes for big-mesh bounce and shadow rays
-# (dispatch.TREELET_WAVEFRONT), and the order phase 12 renders them in
-ROUTES = {"wavefront": True, "single": False}
-ROUTE_TURNS = ("wavefront", "single", "single", "wavefront")
-
-
-@contextlib.contextmanager
-def treelet_route(name):
-    """dispatch.TREELET_WAVEFRONT set for route ``name``, restored after."""
-    saved = dispatch.TREELET_WAVEFRONT
-    dispatch.TREELET_WAVEFRONT = ROUTES[name]
-    try:
-        yield
-    finally:
-        dispatch.TREELET_WAVEFRONT = saved
-
-
 def zero_counts():
     for name in tk.LAUNCHES:
         tk.LAUNCHES[name] = 0
@@ -2251,44 +2245,37 @@ def zero_counts():
     bvh_mod.PLAIN_WALKS = 0
 
 
-def check_route(name, launches):
+def check_route(label, launches):
     """A big-mesh render's counts, set to 0 just before it: K5 launched,
-    K5r exactly on the wavefront route, no plain walk and no cluster
-    kernel."""
-    check(launches["treelet_walk"] > 0, f"{name} route: no K5 launched")
-    if ROUTES[name]:
-        check(launches["treelet_resume"] > 0,
-              f"{name} route: no K5r launched")
-    else:
-        check(launches["treelet_resume"] == 0,
-              f"{name} route: K5r launched {launches['treelet_resume']} "
-              f"times")
+    no K5r, no plain walk and no cluster kernel."""
+    check(launches["treelet_walk"] > 0, f"{label}: no K5 launched")
+    check(launches["treelet_resume"] == 0,
+          f"{label}: K5r launched {launches['treelet_resume']} times")
     check(bvh_mod.PLAIN_WALKS == 0,
-          f"{name} route: the plain walk ran {bvh_mod.PLAIN_WALKS} times")
+          f"{label}: the plain walk ran {bvh_mod.PLAIN_WALKS} times")
     check(sum(ik.LAUNCHES.values()) == 0,
-          f"{name} route: the cluster kernels launched: {ik.LAUNCHES}")
+          f"{label}: the cluster kernels launched: {ik.LAUNCHES}")
 
 
-def route_turn(scene, cfg, name, ref):
-    """One turn of route ``name``: a render with the counts set to 0
+def render_turn(scene, cfg, label, ref):
+    """One turn of the big-mesh render: a render with the counts set to 0
     before it (its image bitwise ``ref``), the second call's wall, the
     host syncs of a third and a fourth under the profiler.  Returns the
     turn's numbers."""
-    with treelet_route(name):
-        zero_counts()
-        img = lt.render(scene, cfg, seed=0)
-        torch.cuda.synchronize()
-        launched = dict(tk.LAUNCHES)
-        check_route(name, launched)
-        check(torch.equal(img, ref),
-              f"the {name} route's image differs from the main path's")
-        t0 = time.perf_counter()
-        lt.render(scene, cfg, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        syncs = count_syncs(lambda: lt.render(scene, cfg, seed=0))
-        busy, n_launch, rows = device_profile(
-            lambda: lt.render(scene, cfg, seed=0))
+    zero_counts()
+    img = lt.render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    launched = dict(tk.LAUNCHES)
+    check_route(label, launched)
+    check(torch.equal(img, ref),
+          f"{label}: the image differs from the main path's")
+    t0 = time.perf_counter()
+    lt.render(scene, cfg, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = count_syncs(lambda: lt.render(scene, cfg, seed=0))
+    busy, n_launch, rows = device_profile(
+        lambda: lt.render(scene, cfg, seed=0))
     by_cat = {}
     for key, (ms, c) in rows.items():
         cat = kernel_category(key)
@@ -2298,42 +2285,43 @@ def route_turn(scene, cfg, name, ref):
             "busy": busy, "launches": n_launch, "by_cat": by_cat}
 
 
-def log_routes(turns):
-    """Each route's turns side by side, and which route wins on device
-    busy and on launches (the wall is host-noisy: its spread is given)."""
+def log_turns(phase, turns):
+    """Each label's turns side by side, and which label is lower on mean
+    device busy, launches and wall (the wall is host-noisy: its spread is
+    given).  Returns the turns by label."""
     per = {}
-    for name, r in turns:
-        per.setdefault(name, []).append(r)
-    for name, rs in per.items():
+    for label, r in turns:
+        per.setdefault(label, []).append(r)
+    for label, rs in per.items():
         def each(fmt, fn):
             return ", ".join(fmt.format(fn(r)) for r in rs)
-        log(12, f"{name} route, {len(rs)} turns: second-call wall "
-                f"{each('{:.2f}', lambda r: r['wall'] * 1e3)} ms; device "
-                f"busy {each('{:.3f}', lambda r: r['busy'])} ms (share "
-                f"{each('{:.3f}', lambda r: r['busy'] / r['wall'] / 1e3)}); "
-                f"launches {each('{}', lambda r: r['launches'])}; host "
-                f"syncs {each('{}', lambda r: r['syncs'])}; treelet "
-                f"launches {rs[0]['launched']}; device ms by kernel (first "
-                f"turn): " + ", ".join(
-                    f"{k} {v[0]:.3f} (x{v[1]})"
-                    for k, v in sorted(rs[0]["by_cat"].items())))
-    mean = {name: {k: sum(r[k] for r in rs) / len(rs)
-                   for k in ("busy", "launches", "wall")}
-            for name, rs in per.items()}
-    for key in ("busy", "launches", "wall"):
-        win = min(mean, key=lambda n_: mean[n_][key])
-        log(12, f"route by mean {key}: " + ", ".join(
-            f"{n_} {v[key]:.4f}" for n_, v in mean.items())
-            + f"; lower: {win}")
+        log(phase, f"{label}, {len(rs)} turns: second-call wall "
+                   f"{each('{:.2f}', lambda r: r['wall'] * 1e3)} ms; device "
+                   f"busy {each('{:.3f}', lambda r: r['busy'])} ms (share "
+                   f"{each('{:.3f}', lambda r: r['busy'] / r['wall'] / 1e3)}"
+                   f"); launches {each('{}', lambda r: r['launches'])}; "
+                   f"host syncs {each('{}', lambda r: r['syncs'])}; treelet "
+                   f"launches {rs[0]['launched']}; device ms by kernel "
+                   f"(first turn): " + ", ".join(
+                       f"{k} {v[0]:.3f} (x{v[1]})"
+                       for k, v in sorted(rs[0]["by_cat"].items())))
+    if len(per) > 1:
+        mean = {label: {k: sum(r[k] for r in rs) / len(rs)
+                        for k in ("busy", "launches", "wall")}
+                for label, rs in per.items()}
+        for key in ("busy", "launches", "wall"):
+            win = min(mean, key=lambda n_: mean[n_][key])
+            log(phase, f"by mean {key}: " + ", ".join(
+                f"{n_} {v[key]:.4f}" for n_, v in mean.items())
+                + f"; lower: {win}")
     return per
 
 
 def phase12(scene, cfg):
-    """The big-mesh render through the dispatch's default route (the main
-    path), then both routes in turns, the heaviest launches held against
-    the plain walk, a re-trace and a profile."""
+    """The big-mesh render through the dispatch's one route (one sorted K5
+    launch a query, the main path): its counts, two more turns, its K5
+    launches held against the plain walk, a re-trace and a profile."""
     n_lanes = cfg.width * cfg.height * cfg.spp
-    main = "wavefront" if dispatch.TREELET_WAVEFRONT else "single"
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2341,39 +2329,28 @@ def phase12(scene, cfg):
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
-    check_route(main, launches)
-    log(12, f"main path: the {main} route (dispatch.TREELET_WAVEFRONT = "
-            f"{dispatch.TREELET_WAVEFRONT}); first render {wall1:.3f} s; "
-            f"launches counted from 0: {launches}")
-    turns = [(name, route_turn(scene, cfg, name, img))
-             for name in ROUTE_TURNS]
-    per = log_routes(turns)
-    wave_launches = per["wavefront"][0]["launched"]
+    check_route("main path", launches)
+    log(12, f"main path: one sorted K5 launch a query; first render "
+            f"{wall1:.3f} s; launches counted from 0: {launches}")
+    turns = [("main path", render_turn(scene, cfg, "main path", img))
+             for _ in range(2)]
+    runs = log_turns(12, turns)["main path"]
     sync_at = {}
-    with treelet_route(main):
-        count_syncs(lambda: lt.render(scene, cfg, seed=0), sync_at)
-    log(12, f"host syncs of a {main}-route render by place: "
+    count_syncs(lambda: lt.render(scene, cfg, seed=0), sync_at)
+    log(12, "host syncs of a render by place: "
             + ", ".join(f"{k} x{v}" for k, v in sorted(sync_at.items())))
-    recs = {}
-    for name, kernels in (("single", ("treelet_walk",)),
-                          ("wavefront", ("treelet_walk", "treelet_resume"))):
-        with treelet_route(name), contextlib.ExitStack() as stack:
-            rs = [stack.enter_context(TreeletRecorder(k)) for k in kernels]
-            t0 = time.perf_counter()
-            lt.render(scene, cfg, seed=0)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        check(bvh_mod.PLAIN_WALKS == 0, "the plain walk ran in the render")
-        for rec in rs:
-            n, ms, counts = rec.summary()
-            log(12, f"{name} route, {rec.name}: {n} launches, {ms:.4f} ms "
-                    f"per launch by CUDA events, {sum(c[0] for c in counts)} "
-                    f"node visits in all (per launch "
-                    f"{[c[0] for c in counts]}); render with events around "
-                    f"every launch {wall:.3f} s")
-            if not rec.resume:
-                log_k5(12, f"{name} route", rec)
-        recs[name] = dict(zip(kernels, rs))
+    with TreeletRecorder("treelet_walk") as rec:
+        t0 = time.perf_counter()
+        lt.render(scene, cfg, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(bvh_mod.PLAIN_WALKS == 0, "the plain walk ran in the render")
+    n, ms, counts = rec.summary()
+    log(12, f"treelet_walk: {n} launches, {ms:.4f} ms per launch by CUDA "
+            f"events, {sum(c[0] for c in counts)} node visits in all (per "
+            f"launch {[c[0] for c in counts]}); render with events around "
+            f"every launch {wall:.3f} s")
+    log_k5(12, "main path", rec)
     # re-trace every 97th lane of the main path through the plain walk
     t0 = time.perf_counter()
     o, d, u = pt._camera_lanes(scene, cfg, 0)
@@ -2386,28 +2363,19 @@ def phase12(scene, cfg):
     frac = float(close.float().mean())
     mean = float(img.mean())
     log(12, f"plain re-trace of {lanes.shape[0]} lanes: {frac:.5f} within "
-            f"rtol 1e-3; image mean {mean:.5f}; both routes' images bitwise "
-            f"the main path's", t0)
+            f"rtol 1e-3; image mean {mean:.5f}; every turn's image bitwise "
+            f"the first render's", t0)
     check(bool(torch.isfinite(img).all()), "big-mesh image not finite")
     check(mean > 0.0, "big-mesh image is black")
     check(frac >= 0.99, f"plain re-trace: {frac} of lanes agree")
-    wall2 = min(r["wall"] for r in per[main])
-    with treelet_route(main):
-        profile_render(scene, cfg, wall2, phase=12, host_top=8)
-    # each kernel's device time a launch under the profiler: K5 on the
-    # single route, K5r on the wavefront route (first turn of each)
-    prof_ms = {}
-    for name, route, cat in (("treelet_walk", "single", "K5"),
-                             ("treelet_resume", "wavefront", "K5r")):
-        t, c = per[route][0]["by_cat"][cat]
-        prof_ms[name] = t / max(c, 1)
-        log(12, f"{name} under the profiler ({route} route): {c} launches, "
-                f"{prof_ms[name]:.4f} ms per launch ({t:.3f} ms in all)")
-    k5_launches = {"treelet_walk": launches["treelet_walk"],
-                   "treelet_resume": wave_launches["treelet_resume"]}
-    k5_recs = (recs["single"]["treelet_walk"],
-               recs["wavefront"]["treelet_resume"])
-    return k5_launches, k5_recs, prof_ms, img
+    profile_render(scene, cfg, min(r["wall"] for r in runs), phase=12,
+                   host_top=8)
+    # K5's device time a launch under the profiler (first turn)
+    t, c = runs[0]["by_cat"]["K5"]
+    prof_ms = t / max(c, 1)
+    log(12, f"treelet_walk under the profiler: {c} launches, {prof_ms:.4f} "
+            f"ms per launch ({t:.3f} ms in all)")
+    return launches["treelet_walk"], rec, prof_ms, img
 
 
 def kernel_category(key):
@@ -2621,15 +2589,18 @@ def probe_device_ms(fn):
 
 
 def log_gap(name, launches, ms, bound):
-    """What a kernel loses on its main path against its bound: launches x
-    (mean time - mean bound), the order of the redesigns."""
+    """What a kernel loses against its bound over ``launches`` launches,
+    on its main path unless ``name`` names another run: launches x (mean
+    time - mean bound), the order of the redesigns."""
     log("gap", f"{name}: {launches} launches x ({ms:.4f} ms - {bound:.4f} "
                f"ms) = {launches * (ms - bound):.3f} ms")
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
-                 library_ms=None):
-    return {"name": name, "route": "cuda", "source": source,
+                 library_ms=None, route="cuda"):
+    """A kernel's line: ``launches`` on the main path; ``route`` "driver"
+    for a kernel no render reaches, timed through its driver."""
+    return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": library_ms}
@@ -5377,8 +5348,7 @@ def phase21(glass, soft):
 
 def phase21_big(scene, cfg):
     """21d: the big mesh at 256x256x2, depth 8, over K5 (bounce 0 the
-    coherent batch), compact bitwise full width; then one compacted
-    render on the K5r wavefront route beside it, bitwise."""
+    coherent batch), compact bitwise full width."""
     t0 = time.perf_counter()
     cfg = dataclasses.replace(cfg, max_depth=COMPACT_DEPTH)
     label = (f"21d big mesh {cfg.width}x{cfg.height}x{cfg.spp} depth "
@@ -5387,27 +5357,6 @@ def phase21_big(scene, cfg):
     for launched in (r["full_launched"], r["comp_launched"]):
         check(set(launched) == {"treelet_walk"},
               f"21d: launches {launched}")
-    flagged = dataclasses.replace(cfg, compact_tail=True)
-    t1 = time.perf_counter()
-    with treelet_route("wavefront"):
-        zero_counts()
-        img = lt.render(scene, flagged, seed=0)
-        torch.cuda.synchronize()
-        launched = launched_now()
-        check_route("wavefront", launched)
-        t2 = time.perf_counter()
-        lt.render(scene, flagged, seed=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t2
-        syncs = count_syncs(lambda: lt.render(scene, flagged, seed=0))
-        busy = device_busy(lambda: lt.render(scene, flagged, seed=0))
-    log(21, f"21d wavefront route, compacted: launches {launched}, second "
-            f"call {wall:.4f} s, host syncs {syncs}, device busy "
-            f"{busy[0]:.3f} ms ({busy[1]} launches); image bitwise the "
-            f"single route's full width {torch.equal(img, r['img'])} "
-            f"[{smi()}]", t1)
-    check(torch.equal(img, r["img"]),
-          "21d: the wavefront route's compacted image differs")
     wall = time.perf_counter() - t0
     log(21, f"21d in {wall:.2f} s")
     return wall
@@ -5669,8 +5618,8 @@ def main():
     check(tab.node is scene.bvh.node_rec and tab.leaf is scene.bvh.leaf_rec
           and tab.node32 is scene.bvh.node32,
           "the treelet tables copied the BVH's records")
-    phase11(scene, cfg)
-    k5_launches, recs, prof_ms, img12 = phase12(scene, cfg)
+    k5r = phase11(scene, cfg)
+    *k5, img12 = phase12(scene, cfg)
     phase15_render("big mesh", scene, cfg, img12, tk.LAUNCHES,
                    ("treelet_walk",))
     wall16 += phase16_big(scene, cfg)
@@ -5681,16 +5630,21 @@ def main():
     log(18, f"phase 18 in all {wall18:.2f} s")
     wall21 += phase21_big(scene, cfg)
     log(21, f"phase 21 in all {wall21:.2f} s")
-    for rec in recs:
+    # K5 on the main path; K5r, which no render reaches, on phase 11's
+    # bounce-1 nearest-hit query through its wavefront driver
+    for (launched, rec, prof_ms), route, where in (
+            (k5, "cuda", ""),
+            (k5r, "driver", " on phase 11's bounce-1 query")):
         ms, plain_ms, bound, _, err = rec.kernel_and_plain()
         entries.append(kernel_entry(
             rec.name, "light_transport_tpu_torch/csrc/treelet_kernel.cu",
             "light_transport_tpu/ops/pallas/treelet_kernel.py:204",
-            k5_launches[rec.name], err, ms, plain_ms, bound))
-        log_gap(rec.name, k5_launches[rec.name], rec.summary()[1],
+            launched if route == "cuda" else 0, err, ms, plain_ms, bound,
+            route=route))
+        log_gap(f"{rec.name}{where}", launched, rec.summary()[1],
                 rec.mean_bound())
-        log_gap(f"{rec.name} (profiler)", k5_launches[rec.name],
-                prof_ms[rec.name], rec.mean_bound())
+        log_gap(f"{rec.name}{where} (profiler)", launched, prof_ms,
+                rec.mean_bound())
     entries += phase13()
     phase14(t6, t6_timings)
     phase15_photon(t5, t6, t6_timings, launches)

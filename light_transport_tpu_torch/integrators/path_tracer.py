@@ -42,7 +42,7 @@ import torch
 from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.core import rng
 from light_transport_tpu_torch.core.config import RenderConfig
-from light_transport_tpu_torch.ops import dispatch, lanestack, qmc, sampling
+from light_transport_tpu_torch.ops import lanestack, qmc, sampling
 from light_transport_tpu_torch.ops.dispatch import (
     scene_intersect,
     scene_occluded,
@@ -465,15 +465,14 @@ def trace_paths(scene, cfg: RenderConfig, origins: torch.Tensor,
                 ) -> Tuple[torch.Tensor, TraceRecord]:
     """Trace a lane population to completion; a pure function of
     ``uniforms`` (N, max_depth, NUM_U).  Returns ``(radiance (N, 3),
-    TraceRecord)``.  Past the dispatch's ``MXU_MAX_TRIS`` the camera rays
-    of bounce 0 go to the dispatch as a coherent batch."""
+    TraceRecord)``.  The camera rays of bounce 0 go to the dispatch as a
+    coherent batch."""
     _check_config(cfg)
     state = PathState.initial(origins, directions)
-    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
     recs = []
     for b in range(cfg.max_depth):
         state, rec = _bounce(scene, cfg, state, uniforms[:, b], b, ray_chunk,
-                             coherent=big and b == 0)
+                             coherent=b == 0)
         recs.append(rec)
     with profiling.span("lt.record"):
         record = TraceRecord(*(torch.stack(parts, dim=1)
@@ -672,7 +671,6 @@ def trace_paths_compact(scene, cfg: RenderConfig, origins: torch.Tensor,
     state = PathState.initial(origins, directions)
     out = torch.zeros((n0, 3), dtype=origins.dtype, device=origins.device)
     lane_ids = torch.arange(n0, device=origins.device)
-    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
     widths, counts = [], []
     u0 = 0  # the bounce of uniforms[:, 0]
     b = 0
@@ -681,7 +679,7 @@ def trace_paths_compact(scene, cfg: RenderConfig, origins: torch.Tensor,
         widths.append(width)
         for k in range(b, min(b + segment, cfg.max_depth)):
             state, _ = _bounce(scene, cfg, state, uniforms[:, k - u0], k,
-                               ray_chunk, coherent=big and k == 0)
+                               ray_chunk, coherent=k == 0)
         b = min(b + segment, cfg.max_depth)
         if b >= cfg.max_depth or width <= min_width:
             continue
@@ -753,7 +751,6 @@ def trace_paths_split(scene, cfg: RenderConfig, origins: torch.Tensor,
     S = stack_size if stack_size is not None else min(depth, 6)
     nodes = sum(math.comb(depth, k) for k in range(min(S, depth) + 1))
     iters = max_iters or 2 * nodes + 1
-    big = scene.mesh.num_triangles > dispatch.MXU_MAX_TRIS
 
     state = PathState.initial(origins, directions)
     bounce_v = torch.zeros((n,), dtype=torch.int32, device=origins.device)
@@ -765,7 +762,7 @@ def trace_paths_split(scene, cfg: RenderConfig, origins: torch.Tensor,
     for it in range(iters):
         state, bounce_v, stack, top, any_alive = _split_step(
             scene, cfg, uniforms, state, bounce_v, stack, top, ray_chunk, S,
-            coherent=big and it == 0)
+            coherent=it == 0)
         done = it + 1
         if not bool(any_alive):  # one readback an iteration
             break

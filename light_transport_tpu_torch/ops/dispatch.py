@@ -1,39 +1,46 @@
 """Intersector dispatch.
 
 The counterpart of ``light_transport_tpu.ops.dispatch``, with the JAX
-package's triangle thresholds:
+package's triangle thresholds.  One router (:func:`_route`) names the
+route of a triangle query, nearest or any hit, from what the dispatch can
+observe: the scene's watertight flag, BVH and treelet tables, the mesh's
+size, the rays' device and the ``coherent`` hint.  The routes:
 
-* a watertight scene (``Scene.with_watertight()``) sends every triangle
-  query to the watertight brute force of ``ops.intersect``, before any
-  other route and on either device: a robustness mode that reaches no
-  kernel, as in JAX;
-* meshes of 48 triangles or fewer go to the brute force of
-  ``ops.intersect`` on either device;
-* meshes up to ``MXU_MAX_TRIS`` triangles go to the cluster-culled
-  intersector of ``ops.intersect_kernel`` (the CUDA kernels K3, or the
-  cull kernel and K4, for tensors on the card, their plain versions for
-  CPU tensors), through coherence sorting;
-* past ``MXU_MAX_TRIS`` every query of a scene with a BVH walks it through
-  the treelet kernels of ``ops.treelet_kernel`` (K5 and K5r for tensors on
-  the card, the plain roped walk of ``accel.bvh`` for CPU tensors).  With
-  treelet tables (``Scene.with_treelet``) every query, the camera grid and
-  the bounce and shadow rays alike, takes one K5 launch behind the
-  coherence sort (``ops.raysort.sorted_apply``).  ``TREELET_WAVEFRONT =
-  True`` restores JAX's route, which sends all but the camera rays through
-  the wavefront driver on K5r.  On an NVIDIA H100 80GB HBM3 (700 W power
-  limit) the single launch won: the 4.2M-triangle render of
-  ``chip_smoke.py`` phase 12 (256x256x2, depth 3), routes in turns, was
-  busy 7.74-7.77 ms on the device against 13.90-13.91 ms, with 2,764
-  launches against 3,335 and the same 27 host syncs, and bitwise the same
-  image (PERF.md, section 6).  Without tables
-  (``with_bvh(treelet=False)``, JAX's XLA-walk route) every query takes
-  one K5 launch over the BVH's records, and coherent camera rays go to
-  the cluster intersector, as in JAX.  A big mesh without a BVH goes to
-  the brute force on the CPU and raises on the card.
+* ``"watertight"``: a watertight scene (``Scene.with_watertight()``)
+  sends every triangle query to the watertight brute force of
+  ``ops.intersect``, before any other route and on either device: a
+  robustness mode that reaches no kernel, as in JAX;
+* ``"brute"``: meshes of 48 triangles or fewer go to the brute force of
+  ``ops.intersect`` on either device, and so does a mesh past
+  ``MXU_MAX_TRIS`` without a BVH on the CPU (on the card it raises);
+* ``"cluster"``: meshes up to ``MXU_MAX_TRIS`` triangles go to the
+  cluster-culled intersector of ``ops.intersect_kernel`` (the CUDA kernels
+  K3, or the cull kernel and K4, for tensors on the card, their plain
+  versions for CPU tensors), through coherence sorting; so do coherent
+  camera rays past it when the scene has no treelet tables, as in JAX;
+* ``"bvh"``: past ``MXU_MAX_TRIS``, a BVH without treelet tables
+  (``with_bvh(treelet=False)``, JAX's XLA-walk route) answers every other
+  query by one K5 launch over the BVH's records (``ops.treelet_kernel``;
+  the plain roped walk of ``accel.bvh`` for CPU tensors);
+* ``"treelet"``: with treelet tables (``Scene.with_treelet``) every query,
+  the camera grid and the bounce and shadow rays alike, takes one K5
+  launch behind the coherence sort (``ops.raysort.sorted_apply``).
 
-The other thresholds and the wavefront's schedule were tuned on a TPU and
-have not been measured on the card.  Inactive lanes (``active``) get an
-empty ray interval on every path but the brute force and report no hit.
+The single sorted launch is the treelet route because it beat JAX's
+route, which sends all but the camera rays through the wavefront driver
+on K5r: on an NVIDIA H100 80GB HBM3 (700 W power limit) the 4.2M-triangle
+render of ``chip_smoke.py`` phase 12 (256x256x2, depth 3), the two routes
+in turns, was busy 7.74-7.77 ms on the device against the wavefront's
+13.90-13.91 ms, with 2,764 launches against 3,335 and the same 27 host
+syncs, and bitwise the same image (PERF.md, section 6).  The wavefront
+and queued drivers stay in ``ops.treelet_kernel``, held bitwise against
+K5.
+
+The other thresholds were tuned on a TPU and have not been measured on
+the card.  Inactive lanes (``active``) get an empty ray interval on the
+cluster and BVH routes (``t_max = -inf``) and on the watertight any-hit
+route (``max_dist = 0``), and report no hit there; the brute forces test
+them, as JAX's do, and callers mask them.
 
 As in JAX, intersection is not differentiated: every query takes its
 rays ``detach()``ed and returns a hit (an occlusion mask, a
@@ -65,13 +72,6 @@ from light_transport_tpu_torch.utils import profiling
 MXU_MAX_TRIS = 1_048_576
 # at or below this many triangles the plain brute force is cheapest
 SMALL_MESH_TRIS = 48
-# the route of big-mesh bounce and shadow rays: one sorted K5 launch
-# (False, measured faster on the card) or JAX's wavefront on K5r (True),
-# whose schedule is one treelet per pass, 12 bounded passes before the
-# unbounded one
-TREELET_WAVEFRONT = False
-WAVEFRONT_LOADS_PER_PASS = 1
-WAVEFRONT_MAX_PASSES = 12
 
 
 def _isect(fn, *args, **kwargs):
@@ -81,26 +81,26 @@ def _isect(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-def _use_cluster_intersector(scene, coherent: bool = False) -> bool:
-    t = scene.mesh.num_triangles
-    if t > MXU_MAX_TRIS:
-        return coherent and scene.treelet is None
-    return t > SMALL_MESH_TRIS
-
-
-def _tables(scene):
-    """The mesh's packed weights, cluster bounds, triangle-major cluster
-    records (which K3 and K4 read) and 32-triangle group boxes (which K4
-    reads), built once per scene."""
-    from light_transport_tpu_torch.ops import intersect_kernel as ik
-
-    mesh = scene.mesh
-    if "cluster" not in mesh.derived:
-        w = ik.pack_tri_weights(mesh)
-        mesh.derived["cluster"] = (w, ik.cluster_bounds(mesh),
-                                   ik.cluster_records(w),
-                                   ik.cluster_group_bounds(mesh))
-    return mesh.derived["cluster"]
+def _route(scene, device: torch.device, coherent: bool = False) -> str:
+    """The route of a triangle query of rays on ``device``: one of
+    ``"watertight"``, ``"brute"``, ``"cluster"``, ``"bvh"`` and
+    ``"treelet"`` (see the module's docstring).  ``coherent`` counts only
+    past ``MXU_MAX_TRIS``.  Raises there for a mesh without a BVH on the
+    card, where the brute force would be plain PyTorch."""
+    if scene.watertight:
+        return "watertight"
+    n = scene.mesh.num_triangles
+    if n <= SMALL_MESH_TRIS:
+        return "brute"
+    if n <= MXU_MAX_TRIS or (coherent and scene.treelet is None):
+        return "cluster"
+    if scene.bvh is not None:
+        return "bvh" if scene.treelet is None else "treelet"
+    if device.type == "cuda":
+        raise ValueError(
+            f"a mesh of {n:,} triangles on the card "
+            "needs a BVH: call Scene.with_bvh() first")
+    return "brute"
 
 
 def _t_max(origins, active, bound=float("inf")):
@@ -110,42 +110,52 @@ def _t_max(origins, active, bound=float("inf")):
     return t if active is None else torch.where(active, t, float("-inf"))
 
 
-def _bvh_query(scene, origins, directions, t_max, active, any_hit,
-               coherent):
-    """The BVH branch, through the treelet kernels."""
+def _query(scene, origins, directions, active, any_hit: bool,
+           max_dist=float("inf"), ray_chunk: Optional[int] = None,
+           coherent: bool = False):
+    """The triangle query on the scene's route: a :class:`Hit`, or with
+    ``any_hit`` an occlusion mask against ``max_dist``."""
+    # imported at each query, so a caller may swap these modules
+    from light_transport_tpu_torch.ops import intersect_kernel as ik
     from light_transport_tpu_torch.ops import treelet_kernel as tk
     from light_transport_tpu_torch.ops.raysort import sorted_apply
 
-    if scene.treelet is None:
+    mesh = scene.mesh
+    route = _route(scene, origins.device, coherent)
+    if route == "watertight":
+        if not any_hit:
+            return _isect(intersect.intersect_rays_watertight, origins,
+                          directions, mesh, ray_chunk=ray_chunk)
+        md = _t_max(origins, None, max_dist)
+        if active is not None:
+            md = torch.where(active, md, 0.0)  # an empty interval
+        return _isect(intersect.occluded_watertight, origins, directions,
+                      mesh, md, ray_chunk=ray_chunk)
+    if route == "brute":
+        if any_hit:
+            return _isect(intersect.occluded, origins, directions, mesh,
+                          max_dist, ray_chunk=ray_chunk)
+        return _isect(intersect.intersect_rays, origins, directions, mesh,
+                      ray_chunk=ray_chunk)
+    t_max = _t_max(origins, active, max_dist)
+    if route == "bvh":
         return _isect(tk.intersect_bvh_treelet, origins, directions,
                       tk.TreeletTables.of(scene.bvh), t_max=t_max,
                       any_hit=any_hit)
-    if TREELET_WAVEFRONT and not coherent:
-        # self-sorting: the per-pass cursor sort replaces the coherence sort
-        return _isect(
-            tk.intersect_bvh_treelet_wavefront,
-            origins, directions, scene.treelet, t_max=t_max, any_hit=any_hit,
-            loads_per_pass=WAVEFRONT_LOADS_PER_PASS,
-            max_passes=WAVEFRONT_MAX_PASSES)
-    return sorted_apply(
-        lambda o, d, t: (
-            _isect(tk.occluded_bvh_treelet, o, d, scene.treelet, t)
-            if any_hit else _isect(tk.intersect_bvh_treelet, o, d,
-                                   scene.treelet, t_max=t)),
-        scene.mesh, origins, directions, t_max,
-        inactive=None if active is None else ~active)
+    if route == "cluster":
+        tables = ik.cluster_tables(mesh)
 
-
-def _big_mesh(scene, origins) -> bool:
-    """Past ``MXU_MAX_TRIS``: True when the BVH answers; raises on the card
-    without one (the brute force there would be plain PyTorch)."""
-    if scene.mesh.num_triangles <= MXU_MAX_TRIS:
-        return False
-    if scene.bvh is None and origins.device.type == "cuda":
-        raise ValueError(
-            f"a mesh of {scene.mesh.num_triangles:,} triangles on the card "
-            "needs a BVH: call Scene.with_bvh() first")
-    return scene.bvh is not None
+        def walk(o, d, t):
+            return _isect(ik.intersect_rays_pallas, o, d, mesh, t_max=t,
+                          any_hit=any_hit, **tables._asdict())
+    elif route == "treelet":
+        def walk(o, d, t):
+            return _isect(tk.intersect_bvh_treelet, o, d, scene.treelet,
+                          t_max=t, any_hit=any_hit)
+    else:
+        raise ValueError(f"no triangle query on route {route!r}")
+    return sorted_apply(walk, mesh, origins, directions, t_max,
+                        inactive=None if active is None else ~active)
 
 
 @profiling.spanned("lt.query.nearest")
@@ -153,34 +163,12 @@ def scene_intersect(scene, origins, directions,
                     ray_chunk: Optional[int] = None, active=None,
                     coherent: bool = False):
     """Nearest hit against the scene.  ``active``: optional (N,) bool;
-    inactive lanes get an empty interval (t_max = -inf), so the cluster
-    cull and the BVH walks drop them, and report no hit.  ``coherent``:
-    the batch is a coherent camera grid (bounce 0), which past
-    ``MXU_MAX_TRIS`` takes the single-launch treelet kernel.  A watertight
-    scene tests every lane, as JAX's does; callers mask the inactive."""
+    inactive lanes get an empty interval on the cluster and BVH routes
+    and report no hit.  ``coherent``: the batch is a coherent camera grid
+    (bounce 0), which counts only past ``MXU_MAX_TRIS``."""
     origins, directions = origins.detach(), directions.detach()
-    if scene.watertight:
-        hit = _isect(intersect.intersect_rays_watertight, origins,
-                     directions, scene.mesh, ray_chunk=ray_chunk)
-    elif _use_cluster_intersector(scene, coherent):
-        from light_transport_tpu_torch.ops.intersect_kernel import (
-            intersect_rays_pallas,
-        )
-        from light_transport_tpu_torch.ops.raysort import sorted_apply
-
-        weights, clusters, records, groups = _tables(scene)
-        hit = sorted_apply(
-            lambda o, d, tm: _isect(
-                intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
-                t_max=tm, clusters=clusters, records=records, groups=groups),
-            scene.mesh, origins, directions, _t_max(origins, active),
-            inactive=None if active is None else ~active)
-    elif _big_mesh(scene, origins):
-        hit = _bvh_query(scene, origins, directions,
-                         _t_max(origins, active), active, False, coherent)
-    else:
-        hit = _isect(intersect.intersect_rays, origins, directions,
-                     scene.mesh, ray_chunk=ray_chunk)
+    hit = _query(scene, origins, directions, active, False,
+                 ray_chunk=ray_chunk, coherent=coherent)
     hit = _merge_analytic(scene, hit, origins, directions)
     return hit._replace(t=hit.t.detach())
 
@@ -213,34 +201,8 @@ def scene_occluded(scene, origins, directions, max_dist,
     """Any-hit visibility against the scene; inactive lanes are skipped and
     report unoccluded."""
     origins, directions = origins.detach(), directions.detach()
-    if scene.watertight:
-        md = _t_max(origins, None, max_dist)
-        if active is not None:
-            md = torch.where(active, md, 0.0)  # an empty interval
-        occ = _isect(intersect.occluded_watertight, origins, directions,
-                     scene.mesh, md, ray_chunk=ray_chunk)
-    elif _use_cluster_intersector(scene):
-        from light_transport_tpu_torch.ops.intersect_kernel import (
-            intersect_rays_pallas,
-        )
-        from light_transport_tpu_torch.ops.raysort import sorted_apply
-
-        weights, clusters, records, groups = _tables(scene)
-        occ = sorted_apply(
-            lambda o, d, m: _isect(
-                intersect_rays_pallas, o, d, scene.mesh, tri_weights=weights,
-                any_hit=True, max_dist=m, clusters=clusters,
-                records=records, groups=groups),
-            scene.mesh, origins, directions,
-            _t_max(origins, active, max_dist),
-            inactive=None if active is None else ~active)
-    elif _big_mesh(scene, origins):
-        occ = _bvh_query(scene, origins, directions,
-                         _t_max(origins, active, max_dist), active, True,
-                         False)
-    else:
-        occ = _isect(intersect.occluded, origins, directions, scene.mesh,
-                     max_dist, ray_chunk=ray_chunk)
+    occ = _query(scene, origins, directions, active, True, max_dist,
+                 ray_chunk=ray_chunk)
     prims = scene.analytic
     if prims is not None and prims.num > 0:
         from light_transport_tpu_torch.scene.analytic import (

@@ -41,6 +41,7 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -165,12 +166,32 @@ def cluster_bounds(mesh):
 def cluster_group_bounds(mesh):
     """(C, GROUPS, 3) lower and upper corners of each run of GROUP_TRIS
     consecutive triangles (K4's groups), with :func:`cluster_bounds`'
-    padding and pad: a cluster's groups together span its box exactly.
-    Built once per scene with the records."""
+    padding and pad: a cluster's groups together span its box exactly."""
     lo, hi, eps = _triangle_boxes(mesh)
     g_lo = lo.reshape(-1, GROUPS, GROUP_TRIS, 3).amin(dim=2) - eps
     g_hi = hi.reshape(-1, GROUPS, GROUP_TRIS, 3).amax(dim=2) + eps
     return g_lo.contiguous(), g_hi.contiguous()
+
+
+class ClusterTables(NamedTuple):
+    """A mesh's tables for the cluster intersector, each field named as
+    the keyword of :func:`intersect_rays_pallas` that takes it."""
+
+    tri_weights: torch.Tensor  # pack_tri_weights
+    clusters: Tuple[torch.Tensor, torch.Tensor]  # cluster_bounds
+    records: torch.Tensor  # cluster_records (K3 and K4 read them)
+    groups: Tuple[torch.Tensor, torch.Tensor]  # cluster_group_bounds (K4)
+
+
+def cluster_tables(mesh) -> ClusterTables:
+    """The mesh's :class:`ClusterTables`, built on the first call and kept
+    in ``mesh.derived``."""
+    if "cluster" not in mesh.derived:
+        w = pack_tri_weights(mesh)
+        mesh.derived["cluster"] = ClusterTables(
+            w, cluster_bounds(mesh), cluster_records(w),
+            cluster_group_bounds(mesh))
+    return mesh.derived["cluster"]
 
 
 def ray_features(origins: torch.Tensor, directions: torch.Tensor):
@@ -614,7 +635,8 @@ def intersect_rays_pallas(origins: torch.Tensor, directions: torch.Tensor,
     function of the same name.  ``tri_weights``, ``clusters``,
     ``records`` and ``groups`` default to :func:`pack_tri_weights`,
     :func:`cluster_bounds`, :func:`cluster_records` and
-    :func:`cluster_group_bounds` of ``mesh``."""
+    :func:`cluster_group_bounds` of ``mesh``, built anew; the dispatch
+    passes the mesh's cached :func:`cluster_tables`."""
     if tri_weights is None:
         tri_weights = pack_tri_weights(mesh)
     c_lo, c_hi = cluster_bounds(mesh) if clusters is None else clusters

@@ -23,10 +23,6 @@ from light_transport_tpu_torch.scene.material import MaterialTable
 if TYPE_CHECKING:  # accel.bvh imports scene.geometry
     from light_transport_tpu_torch.accel.bvh import BVH
 
-# with_bvh(treelet="auto") attaches treelet tables past this triangle
-# count: the dispatch's crossover to the BVH (ops.dispatch.MXU_MAX_TRIS,
-# kept literal here to avoid an import cycle; a test holds them equal)
-TREELET_AUTO_MIN_TRIS = 1_048_576
 # the table format's limit on leaf triangle indices
 TREELET_MAX_TRIS = 1 << 24
 
@@ -35,9 +31,11 @@ def _auto_treelet(scene: "Scene") -> bool:
     """True when the dispatch would send this scene's queries through the
     treelet kernels: the scene lies on the card, is not watertight, and
     its mesh is past the crossover and within the table format."""
+    from light_transport_tpu_torch.ops.dispatch import MXU_MAX_TRIS
+
     n = scene.mesh.num_triangles
     return (not scene.watertight and scene.device.type == "cuda"
-            and TREELET_AUTO_MIN_TRIS < n < TREELET_MAX_TRIS)
+            and MXU_MAX_TRIS < n < TREELET_MAX_TRIS)
 
 
 @dataclasses.dataclass
@@ -79,11 +77,11 @@ class Scene:
 
         ``treelet``: ``"auto"`` attaches treelet tables exactly when the
         dispatch would use them (the scene is on the card, with more than
-        ``TREELET_AUTO_MIN_TRIS`` and fewer than 2^24 triangles); ``True``
-        forces them on any device; ``False`` opts out, and the dispatch
-        then answers each query with one walk of every ray (one K5 launch
-        on the card).  ``timings``, if given, receives the build's steps
-        in seconds (``accel.bvh.build``'s keys)."""
+        the dispatch's ``MXU_MAX_TRIS`` and fewer than 2^24 triangles);
+        ``True`` forces them on any device; ``False`` opts out, and the
+        dispatch then answers each query with one walk of every ray (one
+        K5 launch on the card).  ``timings``, if given, receives the
+        build's steps in seconds (``accel.bvh.build``'s keys)."""
         from light_transport_tpu_torch.accel import bvh as bvh_mod
 
         bvh, ordered = bvh_mod.build(self.mesh, max_leaf=max_leaf,

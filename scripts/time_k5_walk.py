@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time K5, the treelet walk from the root, against an older tree's K5,
-and the big-mesh route on the older tree, inside one run on an NVIDIA GPU.
+and the big-mesh render on each, inside one run on an NVIDIA GPU.
 
 Usage, from the repository root:
 
@@ -12,19 +12,17 @@ git-ignored directory) whose K5 reads the 64-byte fused node records
 (``treelet_walk<any_hit, false, false>``).  On the big-mesh scene of
 ``chip_smoke.py``:
 
-* the route on PARENT's treelet module and kernels: the render through
-  the wavefront and through the sorted single launch in turns (wavefront,
-  single, single, wavefront), by ``chip_smoke.route_turn`` (second-call
-  wall, device busy, launches, host syncs and device time by kernel, the
-  images bitwise this tree's);
-* the six K5 launches of a single-route render (their operands captured
+* the six K5 launches of a render (their operands captured
   on this tree): each held bitwise (best_t, best_tri, visits) through
   PARENT's kernel and this tree's, then timed in turns (PARENT, this
   tree, this tree, PARENT) by CUDA events and under the profiler, with
   its node visits, the share of them whose next node is the adjacent
   record and its largest per-ray visits; the heaviest launch's slowest
   ray timed alone through each;
-* the single-route render through PARENT and this tree, in turns.
+* the render through PARENT's treelet module and kernels and through
+  this tree's, in turns, by ``chip_smoke.render_turn`` (second-call
+  wall, device busy, launches, host syncs and device time by kernel, the
+  images bitwise this tree's).
 
 With --check the launches are only held, not timed.  The last line is one
 JSON object with every number and the card.
@@ -157,18 +155,11 @@ def main(argv):
     scene, cfg, _ = cs.big_mesh_scene()
     tables = scene.treelet
     result = {"card": card}
-    # the single-route render's K5 launches, on this tree
-    with cs.treelet_route("single"), \
-            cs.TreeletRecorder("treelet_walk") as rec:
+    # the render's K5 launches, on this tree
+    with cs.TreeletRecorder("treelet_walk") as rec:
         ref_img = lt.render(scene, cfg, seed=0)
         torch.cuda.synchronize()
     _, _, counts = rec.summary()
-    # the route on PARENT's code
-    if not check_only:
-        with parent_code(mod, lib):
-            turns = [(f"parent, {r}", cs.route_turn(scene, cfg, r, ref_img))
-                     for r in cs.ROUTE_TURNS]
-        result["route_parent"] = cs.log_routes(turns)
     launches = []
     for k, ((feats, _, any_hit), c) in enumerate(zip(rec.launched, counts)):
         ref = parent_walk(lib, feats, tables, any_hit)
@@ -222,14 +213,13 @@ def main(argv):
                              f"({min(ms) / v * 1e6:.1f} ns a visit)"
                              for n_, ms in lone_ms.items()))
     result["lone"] = {"launch": h, "visits": v, "ms": lone_ms}
-    # the single-route render through PARENT and this tree, in turns
+    # the render through PARENT and this tree, in turns
     turns = []
     for name in TURNS:
         with parent_code(mod, lib) if name == "parent" \
                 else contextlib.nullcontext():
-            turns.append((f"{name}, single",
-                          cs.route_turn(scene, cfg, "single", ref_img)))
-    result["render_single"] = cs.log_routes(turns)
+            turns.append((name, cs.render_turn(scene, cfg, name, ref_img)))
+    result["render"] = cs.log_turns("k5", turns)
     print(json.dumps(result, default=str))
     return 0
 

@@ -34,6 +34,7 @@ number and the card.
 
 import ctypes
 import functools
+import inspect
 import json
 import subprocess
 import sys
@@ -49,8 +50,12 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 import light_transport_tpu_torch as lt  # noqa: E402
 from light_transport_tpu_torch.ops import _build  # noqa: E402
-from light_transport_tpu_torch.ops import dispatch  # noqa: E402
 from light_transport_tpu_torch.ops import treelet_kernel as tk  # noqa: E402
+
+# the wavefront driver's schedule: its keyword defaults
+_WAVE = inspect.signature(tk.intersect_bvh_treelet_wavefront).parameters
+LOADS_PER_PASS = _WAVE["loads_per_pass"].default
+MAX_PASSES = _WAVE["max_passes"].default
 
 
 def nvcc_variant(name, src, flags):
@@ -155,13 +160,13 @@ def split_parent(tko, feats, tables, any_hit, stats=False):
         if stats:
             rows.append((live, int(visits.max())))
 
-    for _ in range(dispatch.WAVEFRONT_MAX_PASSES):
+    for _ in range(MAX_PASSES):
         t0 = time.perf_counter()
         live = tko._wave_live(w, tables)
         check_ms += (time.perf_counter() - t0) * 1e3
         if not live:
             break
-        one(dispatch.WAVEFRONT_LOADS_PER_PASS)
+        one(LOADS_PER_PASS)
     one(0)
     torch.cuda.synchronize()
     span = [[e[k].elapsed_time(e[k + 1]) for e in ev] for k in range(4)]
@@ -191,10 +196,10 @@ def copy_driver(o, d, t_max, tables, any_hit):
         tk.treelet_resume(feats, tables, ident, sl, ml, any_hit)
         lanes, orig = sl, orig[perm]
 
-    for _ in range(dispatch.WAVEFRONT_MAX_PASSES):
+    for _ in range(MAX_PASSES):
         if not bool((lanes.cursor < m).any()):
             break
-        one(dispatch.WAVEFRONT_LOADS_PER_PASS)
+        one(LOADS_PER_PASS)
     one(0)
     inv = torch.empty_like(orig)
     inv[orig] = ident
@@ -208,11 +213,11 @@ def host_checked_driver(o, d, t_max, tables, any_hit):
     m = tables.num_nodes
     feats, _ = tk._make_feats(o, d, tk.T_EPS, t_max, tk.DEFAULT_R)
     lanes = tk.Lanes.start(feats)
-    for p in range(dispatch.WAVEFRONT_MAX_PASSES):
+    for p in range(MAX_PASSES):
         if not bool((lanes.cursor < m).any()):
             break
         tk.treelet_resume(feats, tables, tk._sorted_lanes(lanes, p == 0),
-                          lanes, dispatch.WAVEFRONT_LOADS_PER_PASS, any_hit)
+                          lanes, LOADS_PER_PASS, any_hit)
     tk.treelet_resume(feats, tables, tk._sorted_lanes(lanes, False), lanes,
                       0, any_hit)
     return tk._result(lanes.best_t, lanes.best_tri, lanes.visits,
@@ -279,9 +284,7 @@ def main(argv):
         install("parent")
         wave0 = functools.partial(
             tko.intersect_bvh_treelet_wavefront, bo, bd, tables, t_max=t_hi,
-            any_hit=any_hit, with_stats=True,
-            loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
-            max_passes=dispatch.WAVEFRONT_MAX_PASSES)
+            any_hit=any_hit, with_stats=True)
         ref = wave0()
         split = split_parent(tko, feats, tables, any_hit)
         stats = split_parent(tko, feats, tables, any_hit, stats=True)
@@ -305,9 +308,7 @@ def main(argv):
                       "syncs": syncs0}
         wave = functools.partial(
             tk.intersect_bvh_treelet_wavefront, bo, bd, tables, t_max=t_hi,
-            any_hit=any_hit, with_stats=True,
-            loads_per_pass=dispatch.WAVEFRONT_LOADS_PER_PASS,
-            max_passes=dispatch.WAVEFRONT_MAX_PASSES)
+            any_hit=any_hit, with_stats=True)
         single = functools.partial(
             tk.intersect_bvh_treelet, bo, bd, tables, t_max=t_hi,
             any_hit=any_hit, with_stats=True)

@@ -148,7 +148,8 @@ def test_scene_queries_match_jax(route):
     scene = analytic_scene(geometry, material, tscene,
                            prim_tables(analytic, device="cpu"),
                            n_theta=n_theta, device="cpu")
-    assert dispatch._use_cluster_intersector(scene) == (route == "cluster")
+    assert dispatch._route(scene, torch.device("cpu")) == (
+        "cluster" if route == "cluster" else "brute")
     o, d = random_rays(600, seed=2)
     active = np.ones(600, bool)
     active[::5] = False

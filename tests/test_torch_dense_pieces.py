@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from light_transport_tpu_torch.ops import intersect_kernel as ik
-from light_transport_tpu_torch.ops.dispatch import _tables
 from light_transport_tpu_torch.scene.cornell import sphere_triangles
 from light_transport_tpu_torch.scene.geometry import (
     TriangleMesh,
@@ -188,16 +187,17 @@ def test_exact_ties_across_pieces_and_clusters():
 
 
 def test_every_cluster_mesh_gets_records():
-    """The dispatch's tables hold the triangle-major records for a mesh
-    below 16 clusters too (K3 reads them), and K4's group boxes, once per
-    scene."""
+    """The mesh's cluster tables hold the triangle-major records for a
+    mesh below 16 clusters too (K3 reads them), and K4's group boxes,
+    built once per mesh."""
     tris = sphere(8, 16)
     m = TriangleMesh.build(tris, np.zeros(len(tris), np.int32), device="cpu")
     scene = Scene.build(m, MaterialTable.build(
         [Material(color=presets.GREY)], device="cpu"), camera=[0, 0, 5])
-    w, (c_lo, c_hi), recs, (g_lo, g_hi) = _tables(scene)
-    assert torch.equal(recs, ik.cluster_records(w))
+    tab = ik.cluster_tables(scene.mesh)
+    recs = tab.records
+    assert torch.equal(recs, ik.cluster_records(tab.tri_weights))
     assert all(torch.equal(a, b) for a, b in zip(
-        (g_lo, g_hi), ik.cluster_group_bounds(m)))
+        tab.groups, ik.cluster_group_bounds(m)))
     assert recs.shape == (1, ik.TRI_TILE, ik.REC_FLOATS)
-    assert _tables(scene)[2] is recs
+    assert ik.cluster_tables(scene.mesh).records is recs

@@ -15,6 +15,7 @@ the same triangle on >= 99 % of the records that are not exact ties.
 import dataclasses
 import inspect
 import pathlib
+import types
 from unittest import mock
 
 import jax
@@ -30,6 +31,7 @@ from light_transport_tpu_torch.core import math as lm
 from light_transport_tpu_torch.core.config import RenderConfig
 from light_transport_tpu_torch.integrators import path_tracer as pt
 from light_transport_tpu_torch.models import presets
+from light_transport_tpu_torch.ops import dispatch
 from light_transport_tpu_torch.scene.geometry import MESH_FIELDS
 from light_transport_tpu_torch.scene.lights import LIGHT_FIELDS
 from light_transport_tpu_torch.scene.material import MATERIAL_FIELDS
@@ -345,6 +347,51 @@ def test_interop_scene_hit_and_uniform_round_trip():
     u_aa, uni = rng.random((6, 2)), rng.random((6, 3, 7))
     ua, un = interop.uniforms_from_numpy(u_aa, uni, device="cpu")
     assert ua.dtype == un.dtype == torch.float32 and un.shape == (6, 3, 7)
+
+
+BIG = dispatch.MXU_MAX_TRIS + 1
+# the router's table: case -> (stand-in scene's fields, the rays' device,
+# coherent, the route; None where it raises)
+ROUTES = {
+    "watertight": (dict(tris=BIG, watertight=True, bvh=True, treelet=True),
+                   "cuda", True, "watertight"),
+    "small": (dict(tris=dispatch.SMALL_MESH_TRIS, bvh=True), "cuda", False,
+              "brute"),
+    "cluster": (dict(tris=dispatch.SMALL_MESH_TRIS + 1), "cpu", False,
+                "cluster"),
+    "cluster-cap": (dict(tris=dispatch.MXU_MAX_TRIS, bvh=True, treelet=True),
+                    "cuda", False, "cluster"),
+    "bvh": (dict(tris=BIG, bvh=True), "cuda", False, "bvh"),
+    "bvh-coherent": (dict(tris=BIG, bvh=True), "cuda", True, "cluster"),
+    "treelet": (dict(tris=BIG, bvh=True, treelet=True), "cuda", False,
+                "treelet"),
+    "treelet-coherent": (dict(tris=BIG, bvh=True, treelet=True), "cuda",
+                         True, "treelet"),
+    "no-bvh-cpu": (dict(tris=BIG), "cpu", False, "brute"),
+    "no-bvh-cuda": (dict(tris=BIG), "cuda", False, None),
+    "no-bvh-cuda-coherent": (dict(tris=BIG), "cuda", True, "cluster"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_dispatch_router(case):
+    """The dispatch's one router on stand-in scenes: the watertight flag
+    first, the brute force to 48 triangles, the cluster intersector to
+    the crossover whatever the scene carries, past it the BVH (one K5
+    launch), the treelet tables (one sorted K5 launch) or, for coherent
+    rays without tables, the cluster intersector; without a BVH the brute
+    force on the CPU and a refusal on the card."""
+    fields, device, coherent, want = ROUTES[case]
+    scene = types.SimpleNamespace(
+        watertight=fields.get("watertight", False),
+        mesh=types.SimpleNamespace(num_triangles=fields["tris"]),
+        bvh=object() if fields.get("bvh") else None,
+        treelet=object() if fields.get("treelet") else None)
+    if want is None:
+        with pytest.raises(ValueError, match="needs a BVH"):
+            dispatch._route(scene, torch.device(device), coherent)
+    else:
+        assert dispatch._route(scene, torch.device(device), coherent) == want
 
 
 def _default_device(fn):

@@ -3,8 +3,8 @@ torch: the records decode to the fused 64-byte records bit for bit, the
 plain walk read through them equals the roped walk over the fused records
 bitwise (t, triangle, per-ray visits; nearest and any hit; dead and
 padding lanes), the BVH carries them into every table that reads it, and
-the sort's scene bounds are computed once per mesh.  The dispatch's two
-routes (``TREELET_WAVEFRONT``) are held against the roped walk in
+the sort's scene bounds are computed once per mesh.  The dispatch's
+treelet routes are held against the roped walk in
 ``tests/test_torch_treelet_render.py``.
 
 The mesh and rays are ``tests/test_torch_treelet_perm.py``'s: 2,000 random

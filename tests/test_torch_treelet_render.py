@@ -91,14 +91,12 @@ def test_treelet_drivers_match_walk(driver):
     np.testing.assert_array_equal(occ.numpy(), c.jocc)
 
 
-@pytest.mark.parametrize("wavefront", [False, True])
-def test_dispatch_routes_treelet(monkeypatch, wavefront):
+def test_dispatch_routes_treelet(monkeypatch):
     """Past the cap (patched below a 400-triangle mesh), a scene with a
     BVH answers through the treelet wrappers bitwise as the roped walk
-    does: without tables one K5 per query; with tables coherent camera
-    rays take K5, the rest K5r (or K5 with the wavefront off)."""
+    does: one K5 per query, without tables and with them (behind the
+    coherence sort), the coherent camera rays too; never K5r."""
     monkeypatch.setattr(dispatch, "MXU_MAX_TRIS", 100)
-    monkeypatch.setattr(dispatch, "TREELET_WAVEFRONT", wavefront)
     walk = small_scene().with_bvh(treelet=False)
     assert walk.treelet is None
     tabled = walk.with_treelet(T=64)
@@ -126,12 +124,11 @@ def test_dispatch_routes_treelet(monkeypatch, wavefront):
     np.testing.assert_array_equal(
         dispatch.scene_occluded(tabled, o, d, 3.0, active=active).numpy(),
         ref_occ.numpy())
-    assert (calls["treelet_resume"] > 0) == wavefront
-    assert calls["treelet_walk"] == (0 if wavefront else 2)
+    assert calls == {"treelet_walk": 2, "treelet_resume": 0}
     calls["treelet_walk"] = 0
     assert_hits_equal(dispatch.scene_intersect(tabled, o, d, active=active,
                                                coherent=True), ref_hit)
-    assert calls["treelet_walk"] == 1
+    assert calls == {"treelet_walk": 1, "treelet_resume": 0}
     assert not ref_hit.valid[~active].any() and ref_hit.valid.any()
     assert not ref_occ[~active].any() and ref_occ.any()
 
@@ -241,7 +238,6 @@ def test_with_bvh_auto_treelet_policy():
     """``with_bvh(treelet="auto")`` attaches tables exactly when the
     dispatch would use them: on the card, past the crossover, within the
     format; ``True`` forces them, ``False`` opts out."""
-    assert scene_mod.TREELET_AUTO_MIN_TRIS == dispatch.MXU_MAX_TRIS
     base = small_scene()
     assert base.with_bvh().treelet is None  # the CPU: auto never attaches
     forced = base.with_bvh(treelet=True)
@@ -254,11 +250,11 @@ def test_with_bvh_auto_treelet_policy():
             device=torch.device(device), watertight=False,
             mesh=types.SimpleNamespace(num_triangles=tris))
 
-    big = scene_mod.TREELET_AUTO_MIN_TRIS + 1
+    big = dispatch.MXU_MAX_TRIS + 1
     assert scene_mod._auto_treelet(fake("cuda", big))
     assert not scene_mod._auto_treelet(fake("cpu", big))
     assert not scene_mod._auto_treelet(
-        fake("cuda", scene_mod.TREELET_AUTO_MIN_TRIS))
+        fake("cuda", dispatch.MXU_MAX_TRIS))
     assert not scene_mod._auto_treelet(fake("cuda", 1 << 24))
     # the tables and records survive the interop round trip
     d = interop.scene_to_numpy(forced)

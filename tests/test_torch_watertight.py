@@ -324,7 +324,7 @@ def test_with_bvh_and_interop_keep_the_flag():
     fake = types.SimpleNamespace(
         device=torch.device("cuda"), watertight=True,
         mesh=types.SimpleNamespace(
-            num_triangles=scene_mod.TREELET_AUTO_MIN_TRIS + 1))
+            num_triangles=dispatch.MXU_MAX_TRIS + 1))
     assert not scene_mod._auto_treelet(fake)
     fake.watertight = False
     assert scene_mod._auto_treelet(fake)
